@@ -1,0 +1,32 @@
+"""Device selection for the port's entry points.
+
+Every entry point takes a ``device``. ``None`` means the GPU: the port
+runs on ``cuda`` unless the caller asks for the CPU, and a caller that did
+not ask for the CPU and has no GPU gets an error, never a silent CPU run.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raises when a CUDA device is asked for (or
+    defaulted to) and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (or set "
+            "CRACKLING_PLATFORM=cpu for the CLIs) to run on the CPU")
+    return dev
+
+
+def cli_device() -> str:
+    """The CLIs' device: ``cpu`` when CRACKLING_PLATFORM=cpu, else
+    ``cuda`` (the same override the JAX package's CLIs honour)."""
+    return "cpu" if os.environ.get("CRACKLING_PLATFORM", "") == "cpu" \
+        else "cuda"

@@ -1,0 +1,300 @@
+"""The compact engine's finder: per-(chunk, query slot) hit moments.
+
+For every (slice ``s``, bucket ``b``) of the ISSL index, every entry of
+the bucket (in-bucket rank ``r < blen``) and every query slot ``j`` of
+the page's slot plan, the pair is a **hit** iff
+
+* the Hamming distance (mismatched positions) is ``<= max_dist``;
+* no earlier slice ``s' < s`` matches the query exactly (first-clean-
+  slice dedup: the hit was counted there);
+* the slot holds a query (padding slots, id ``n``, have no hits).
+
+Per 4096-entry chunk (``chunk``) and slot the finder emits the quad
+(hit count, sum of in-bucket ranks, min rank, max rank); with
+``superchunk > 0`` the same quad per superchunk of chunks; and always the
+bucket totals. Output planes are (S, B, C, qb) with cells
+``[0, nchmax)`` the chunks, ``[nchmax, nchmax + nsc)`` the superchunks and
+``nchmax + nsc`` the totals; empty cells read (0, 0, RANK_EMPTY, -1).
+Counts and min/max ranks are int32, rank sums int64: all exact.
+
+Two implementations of the same function:
+
+* :func:`compact_finder` — the wrapper. On a CUDA tensor it launches the
+  hand-written Hopper kernel ``csrc/compact_finder.cu`` (built with nvcc
+  at first use, bound with ctypes); on a CPU tensor it runs the plain
+  version. Nothing else: no fallback from one to the other.
+* :func:`compact_finder_plain` — plain PyTorch over the list of
+  (slot, entry) pairs, in bounded blocks; the CPU tests' engine and the
+  reference the kernel is held to on the card.
+
+Replaces crackling_tpu/ops/issl_compact.py::_finder_kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from .bits import SIG40, collapse_pairs, earlier_slice_clean, popcount
+
+RANK_EMPTY = 1 << 23          # min-rank of an empty cell (ranks < 2^22)
+KERNEL_TILE = 512             # entries per shared-memory tile (.cu kTile)
+# plain version: (slot, entry) pairs evaluated per block, bounding memory
+PLAIN_PAIR_BLOCK = 1 << 23
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "compact_finder.cu"
+_BUILD = _PKG / "_build"
+_lock = threading.Lock()
+_lib = None
+
+
+class FinderOut(NamedTuple):
+    cnt: torch.Tensor     # (S, B, C, qb) int32 hit counts
+    rsum: torch.Tensor    # (S, B, C, qb) int64 sums of in-bucket ranks
+    rmin: torch.Tensor    # (S, B, C, qb) int32 min rank (RANK_EMPTY: none)
+    rmax: torch.Tensor    # (S, B, C, qb) int32 max rank (-1: none)
+    nchmax: int           # chunk cells [0, nchmax)
+    nsc: int              # superchunk cells [nchmax, nchmax + nsc)
+
+    @property
+    def total_cell(self) -> int:
+        return self.nchmax + self.nsc
+
+
+def superchunk_cells(nchmax: int, superchunk: int) -> int:
+    return -(-nchmax // superchunk) if superchunk else 0
+
+
+# -- the kernel -----------------------------------------------------------
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the compact finder kernel is built "
+                       f"from {_SRC} at first use")
+
+
+def build_kernel_library() -> Path:
+    """Compile ``csrc/compact_finder.cu`` for sm_90a into ``_build/``
+    (once per source version) and return the library's path. The
+    compiler's ``-Xptxas -v`` report lands beside it as ``.log``."""
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
+    out = _BUILD / f"libcompact_finder_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load_kernel():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_kernel_library()))
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.crackling_compact_finder.restype = i
+            lib.crackling_compact_finder.argtypes = [
+                p, ll, p, p, p, p,    # entries, epad, boff, blen, qsig, qsp
+                i, i, i, i,           # S, B, qb, n
+                i, i, i, i, i,        # chunk, nchmax, superchunk, nsc, max_dist
+                p, p, p, p,           # cnt, rsum, rmin, rmax
+                i, p]                 # device, stream
+            _lib = lib
+    return _lib
+
+
+def _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist):
+    dev = entries.device
+    for name, t, dt, nd in (("entries", entries, torch.int64, 2),
+                            ("boff", boff, torch.int64, 2),
+                            ("blen", blen, torch.int32, 2),
+                            ("q_sig", q_sig, torch.int64, 1),
+                            ("qsp", qsp, torch.int32, 3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, entries on {dev}")
+        if t.dtype != dt or t.dim() != nd:
+            raise ValueError(f"{name} must be a {nd}-d {dt} tensor, got "
+                             f"{t.dim()}-d {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    S, B, qb = qsp.shape
+    if entries.shape[0] != S or boff.shape != (S, B) \
+            or blen.shape != (S, B):
+        raise ValueError("entries/boff/blen/qsp disagree on (S, B)")
+    if not 1 <= S <= 5:
+        raise ValueError("the finder takes 1..5 slices (l=20, w=8)")
+    if chunk % KERNEL_TILE or nchmax < 1 or qb < 1:
+        raise ValueError(f"chunk must be a multiple of {KERNEL_TILE}; "
+                         "nchmax and qb must be >= 1")
+    if not 0 <= max_dist <= 20:
+        raise ValueError("max_dist must lie in [0, 20]")
+    if q_sig.numel() >= (1 << 31):
+        raise ValueError("query page too large for int32 slot ids")
+
+
+def _alloc(S, B, qb, nchmax, nsc, device):
+    shape = (S, B, nchmax + nsc + 1, qb)
+    return FinderOut(torch.empty(shape, dtype=torch.int32, device=device),
+                     torch.empty(shape, dtype=torch.int64, device=device),
+                     torch.empty(shape, dtype=torch.int32, device=device),
+                     torch.empty(shape, dtype=torch.int32, device=device),
+                     nchmax, nsc)
+
+
+def compact_finder(entries: torch.Tensor, boff: torch.Tensor,
+                   blen: torch.Tensor, q_sig: torch.Tensor,
+                   qsp: torch.Tensor, *, chunk: int, nchmax: int,
+                   superchunk: int, max_dist: int) -> FinderOut:
+    """The finder (module docstring) on ``entries.device``.
+
+    entries (S, Epad) int64 bucket-aligned packed site signatures (one
+    slice per row); boff (S, B) int64 bucket starts within a row; blen
+    (S, B) int32 bucket lengths; q_sig (n,) int64 query signatures; qsp
+    (S, B, qb) int32 slot plan (query id per slot, ``n`` = padding).
+    A CUDA tensor launches the kernel (counted in ``compact_finder.
+    launches``); a CPU tensor runs :func:`compact_finder_plain`."""
+    _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist)
+    if entries.device.type == "cpu":
+        return compact_finder_plain(entries, boff, blen, q_sig, qsp,
+                                    chunk=chunk, nchmax=nchmax,
+                                    superchunk=superchunk,
+                                    max_dist=max_dist)
+    if entries.device.type != "cuda":
+        raise ValueError(f"no compact finder for device {entries.device}")
+    lib = _load_kernel()
+    S, B, qb = qsp.shape
+    nsc = superchunk_cells(nchmax, superchunk)
+    out = _alloc(S, B, qb, nchmax, nsc, entries.device)
+    stream = torch.cuda.current_stream(entries.device).cuda_stream
+    rc = lib.crackling_compact_finder(
+        entries.data_ptr(), entries.shape[1], boff.data_ptr(),
+        blen.data_ptr(), q_sig.data_ptr(), qsp.data_ptr(),
+        S, B, qb, q_sig.numel(), chunk, nchmax, superchunk, nsc, max_dist,
+        out.cnt.data_ptr(), out.rsum.data_ptr(), out.rmin.data_ptr(),
+        out.rmax.data_ptr(), entries.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"compact finder kernel launch failed: CUDA "
+                           f"error {rc}")
+    compact_finder.launches += 1
+    return out
+
+
+compact_finder.launches = 0
+
+
+# -- the plain version ----------------------------------------------------
+
+
+def compact_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
+                         blen: torch.Tensor, q_sig: torch.Tensor,
+                         qsp: torch.Tensor, *, chunk: int, nchmax: int,
+                         superchunk: int, max_dist: int) -> FinderOut:
+    """The same function in plain PyTorch: enumerate the (query slot,
+    bucket entry) pairs of occupied slots in blocks of at most
+    ``PLAIN_PAIR_BLOCK``, test the hit predicate, and scatter hits into
+    the chunk cells; superchunk and bucket cells reduce the chunk cells.
+    Work is proportional to the pairs the page really has."""
+    compact_finder_plain.calls += 1
+    dev = entries.device
+    S, B, qb = qsp.shape
+    n = q_sig.numel()
+    epad = entries.shape[1]
+    nsc = superchunk_cells(nchmax, superchunk)
+
+    qid = qsp.reshape(-1).long()
+    slot = torch.arange(S * B * qb, device=dev)
+    sl = slot // (B * qb)
+    sb = slot // qb                                   # s * B + b
+    lens = blen.reshape(-1).long()[sb]
+    live = (qid < n) & (qid >= 0) & (lens > 0)
+    slot, sl, sb, lens = slot[live], sl[live], sb[live], lens[live]
+    q = q_sig[qid[live]]
+    base = sl * epad + boff.reshape(-1)[sb]           # flat bucket start
+
+    cells = S * B * qb * nchmax
+    cnt = torch.zeros(cells, dtype=torch.int64, device=dev)
+    rsum = torch.zeros(cells, dtype=torch.int64, device=dev)
+    rmin = torch.full((cells,), RANK_EMPTY, dtype=torch.int64, device=dev)
+    rmax = torch.full((cells,), -1, dtype=torch.int64, device=dev)
+    flat = entries.reshape(-1)
+
+    # slot blocks whose pair counts sum to <= PLAIN_PAIR_BLOCK (a single
+    # slot longer than that is its own block)
+    ends = torch.cumsum(lens, 0).cpu()
+    i0 = 0
+    while i0 < slot.numel():
+        start = int(ends[i0 - 1]) if i0 else 0
+        i1 = int(torch.searchsorted(ends, start + PLAIN_PAIR_BLOCK,
+                                    right=True))
+        i1 = max(i1, i0 + 1)
+        blens = lens[i0:i1]
+        rep = torch.repeat_interleave(
+            torch.arange(i1 - i0, device=dev), blens)
+        first = torch.cumsum(blens, 0) - blens
+        r = torch.arange(rep.numel(), device=dev) - first[rep]
+        e = flat[base[i0:i1][rep] + r]
+        c40 = collapse_pairs((e ^ q[i0:i1][rep]) & SIG40)
+        hit = ((popcount(c40) <= max_dist)
+               & ~earlier_slice_clean(c40, sl[i0:i1][rep]))
+        h = torch.nonzero(hit).flatten()
+        rh = r[h]
+        cell = slot[i0:i1][rep[h]] * nchmax + rh // chunk
+        cnt.index_add_(0, cell, torch.ones_like(rh))
+        rsum.index_add_(0, cell, rh)
+        rmin.scatter_reduce_(0, cell, rh, "amin")
+        rmax.scatter_reduce_(0, cell, rh, "amax")
+        i0 = i1
+
+    # (S*B*qb, nchmax) slot-major -> (S, B, nchmax, qb) cell-major
+    def planes(x):
+        return x.view(S, B, qb, nchmax).permute(0, 1, 3, 2)
+
+    ch = [planes(x) for x in (cnt, rsum, rmin, rmax)]
+    empty = (0, 0, RANK_EMPTY, -1)
+    fold = (torch.sum, torch.sum, torch.amin, torch.amax)
+
+    def reduce_cells(k, width):
+        """The four chunk planes folded over groups of ``width`` chunk
+        cells -> (S, B, k, qb) each (the last group padded with empty
+        cells)."""
+        res = []
+        for x, fill, op in zip(ch, empty, fold):
+            pad = k * width - nchmax
+            if pad:
+                x = torch.cat([x, torch.full((S, B, pad, qb), fill,
+                                             dtype=x.dtype, device=dev)], 2)
+            res.append(op(x.reshape(S, B, k, width, qb), 3))
+        return res
+
+    parts = [ch]
+    if superchunk:
+        parts.append(reduce_cells(nsc, superchunk))
+    parts.append(reduce_cells(1, nchmax))
+    out = [torch.cat([p[i] for p in parts], 2).contiguous()
+           for i in range(4)]
+    return FinderOut(out[0].int(), out[1], out[2].int(), out[3].int(),
+                     nchmax, nsc)
+
+
+compact_finder_plain.calls = 0

@@ -1,0 +1,148 @@
+"""Fast full-scan scoring with reference-exact verdicts for all 5 methods.
+
+The port of crackling_tpu/ops/issl_dense.py::HybridIsslScorer and
+``_NativeExact``. A fast engine (the compact engine on the GPU) scores
+every query; the queries whose verdict its rounding could flip are
+scored again exactly on the host, in f64 and in the reference's scan
+order with its early exit.
+
+Re-score chain in this package: ``native/exact.cpp`` (the binary's
+per-query bucket walk, OpenMP across queries), and where no host
+toolchain exists, ``oracle.score_exact``. The on-device exact (MXU)
+engine joins the chain when it is ported (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..index.build import IsslIndex
+
+
+def plan_query_occupancy(sigs: np.ndarray, S: int, B: int,
+                         slice_width: int, qb_cap: int):
+    """Padded max per-(slice, bucket) query occupancy QB — the only
+    data-dependent *shape* of the page program, a property of the query
+    page alone. Returns (None, needed) on qb_cap overflow."""
+    sigs = np.asarray(sigs, dtype=np.uint64)
+    counts = np.zeros((S, B), dtype=np.int64)
+    mask = np.uint64(B - 1)
+    for s in range(S):
+        vals = ((sigs >> np.uint64(s * slice_width)) & mask).astype(np.int64)
+        counts[s] = np.bincount(vals, minlength=B)
+    qb = int(counts.max())
+    if qb > qb_cap:
+        return None, qb
+    return -(-qb // 64) * 64, qb
+
+
+class _NativeExact:
+    """score() adapter over native.exact_score_native (exact.cpp)."""
+
+    def __init__(self, index, max_dist, threshold, method):
+        self.index = index
+        self.max_dist = max_dist
+        self.threshold = threshold
+        self.method = method
+
+    def score(self, sigs):
+        from .. import native
+
+        return native.exact_score_native(self.index, sigs, self.max_dist,
+                                         self.threshold, self.method)
+
+
+class _OracleExact(_NativeExact):
+    """score() adapter over oracle.score_exact (pure numpy, slow)."""
+
+    def score(self, sigs):
+        from .oracle import score_exact
+
+        return score_exact(self.index, sigs, self.max_dist, self.threshold,
+                           self.method)
+
+
+class HybridIsslScorer:
+    """Fast-engine speed with reference-exact verdicts for all 5 methods.
+
+    For mit/cfd/and/or, full-scan verdicts match the binary's early-exit
+    verdicts in exact arithmetic: those methods exit only once rejection
+    is decided (the reference's inverted naming — 'and' REJECTS iff both
+    scores are below threshold, 'or' iff either is, Crackling.py:814-828
+    — makes the binary's exit conditions at isslScoreOfftargets.cpp:
+    467-478 exactly reject-decided), and full-scan sums are >= partial
+    sums, so the full scan can only confirm the rejection. The remaining
+    risk is f32 rounding flipping a comparison at the threshold, so
+    every query whose method-relevant margin ``|score - threshold|`` is
+    within ``band`` is re-scored exactly; re-scored queries also get the
+    binary's exact early-exit score values.
+
+    ``avg`` is different: the binary exits on the average of the SUMS
+    (isslScoreOfftargets.cpp:479-484) while the pipeline thresholds the
+    average of the SCORES (Crackling.py:831), and by convexity of
+    ``10000/(100+x)`` an exited query's frozen score average can sit
+    ABOVE the threshold. Accepts are still safe under a full scan, so for
+    ``avg`` every query the fast scan does NOT accept by more than
+    ``band`` is re-scored exactly.
+    """
+
+    def __init__(self, index: IsslIndex, max_dist: int | None = None,
+                 method: str = "and", threshold: float = 75.0,
+                 band: float | None = None, dense=None, device=None,
+                 **dense_kw):
+        self.index = index
+        self.max_dist = index.max_dist if max_dist is None else max_dist
+        self.method = method
+        self.threshold = float(threshold)
+        # ``dense`` may be any prebuilt full-scan fast engine with the
+        # same score() contract; by default the compact engine
+        if dense is None:
+            from .issl_compact import CompactIsslScorer
+
+            dense = CompactIsslScorer(index, max_dist=max_dist,
+                                      device=device, **dense_kw)
+        self.dense = dense
+        # band=None: the fast engine's advertised rounding band
+        if band is None:
+            band = getattr(self.dense, "score_band", 1.0)
+        self.band = float(band)
+        self._exact = None
+        self.last_rescored = 0
+
+    def _get_exact(self):
+        if self._exact is None:
+            from .. import native
+
+            args = (self.index, self.max_dist, self.threshold, self.method)
+            probe = native.exact_score_native(
+                self.index, np.empty(0, np.uint64), self.max_dist,
+                self.threshold, self.method)
+            self._exact = (_NativeExact(*args) if probe is not None
+                           else _OracleExact(*args))
+        return self._exact
+
+    def _near_threshold(self, mit, cfd):
+        thr, band = self.threshold, self.band
+        m_mit = np.abs(mit - thr) <= band
+        m_cfd = np.abs(cfd - thr) <= band
+        if self.method == "mit":
+            return m_mit
+        if self.method == "cfd":
+            return m_cfd
+        if self.method == "avg":
+            # every non-clear-accept: the reference's avg early exit can
+            # accept queries whose full-scan average is far below the
+            # threshold (see class docstring)
+            return (mit + cfd) / 2.0 < thr + band
+        return m_mit | m_cfd          # and / or
+
+    def score(self, query_sigs: np.ndarray):
+        sigs = np.asarray(query_sigs, dtype=np.uint64)
+        mit, cfd = self.dense.score(sigs)
+        near = self._near_threshold(mit, cfd)
+        self.last_rescored = int(near.sum())   # diagnostics / perf studies
+        if near.any():
+            em, ec = self._get_exact().score(sigs[near])
+            mit[near] = em
+            cfd[near] = ec
+        return mit, cfd

@@ -1,0 +1,241 @@
+"""The PyTorch compact engine against the JAX engine and the oracles (CPU).
+
+Inputs are ``tests/test_compact.py``'s datasets (made with numpy from a
+seed), handed to both packages through ``convert.index_from_arrays``.
+On the CPU the port runs its plain finder; the JAX engine runs its Pallas
+kernel in interpret mode, as its own tests do. Tolerances: finder cells
+exact; compaction populations (``page_stats``) exact under the same caps;
+sums within rtol 1e-5 / atol 1e-5 (f32 per-hit arithmetic, summed in
+different orders), as in test_compact.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from crackling_tpu.ops.issl_compact import CompactIsslScorer as JaxCompact
+from crackling_tpu.ops.issl_compact import _quant_cap as jax_quant_cap
+from crackling_tpu.ops.oracle import score_bruteforce
+from crackling_tpu_torch.convert import index_from_arrays
+from crackling_tpu_torch.ops.compact_finder import (RANK_EMPTY,
+                                                    compact_finder,
+                                                    superchunk_cells)
+from crackling_tpu_torch.ops.issl_compact import (ALIGN, CompactIsslScorer,
+                                                  _quant_cap, plan_slots)
+from test_band_probe import COMPACT_MARGIN, adversarial  # noqa: F401
+from test_compact import data, deep_data  # noqa: F401
+
+TINY_SC_CAPS = (1 << 17, 1 << 16, 8, 4, 1 << 17, 1 << 15, 1 << 17)
+
+
+def port_index(index):
+    return index_from_arrays(dict(
+        seq_length=index.seq_length, slice_width=index.slice_width,
+        seq_count=index.seq_count, site_sigs=index.site_sigs,
+        occurrences=index.occurrences, order=index.order,
+        bucket_offsets=index.bucket_offsets))
+
+
+@pytest.fixture(scope="module")
+def datasets(data, deep_data):  # noqa: F811
+    return {"data": data, "deep": deep_data}
+
+
+def _assert_sums(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+# -- the finder against a numpy brute force of its predicate ---------------
+
+
+def _numpy_slot_plan(queries, S, B, qb):
+    qsp = np.full((S, B, qb), len(queries), dtype=np.int64)
+    fill = np.zeros((S, B), dtype=np.int64)
+    for i, q in enumerate(queries):
+        for s in range(S):
+            b = (int(q) >> (8 * s)) & (B - 1)
+            qsp[s, b, fill[s, b]] = i
+            fill[s, b] += 1
+    return qsp
+
+
+def _numpy_finder(index, queries, qsp, chunk, nchmax, superchunk,
+                  max_dist):
+    S, B, qb = qsp.shape
+    nsc = superchunk_cells(nchmax, superchunk)
+    C = nchmax + nsc + 1
+    cnt = np.zeros((S, B, C, qb), np.int64)
+    rsum = np.zeros((S, B, C, qb), np.int64)
+    rmin = np.full((S, B, C, qb), RANK_EMPTY, np.int64)
+    rmax = np.full((S, B, C, qb), -1, np.int64)
+    for s in range(S):
+        for b in range(B):
+            lo, hi = index.bucket_offsets[s, b], index.bucket_offsets[s, b + 1]
+            ents = index.site_sigs[index.order[s, lo:hi]]
+            for j in range(qb):
+                qid = qsp[s, b, j]
+                if qid >= len(queries) or ents.size == 0:
+                    continue
+                x = ents ^ queries[qid]
+                pos = np.array([(x >> np.uint64(2 * p)) & np.uint64(3)
+                                for p in range(20)]) != 0      # (20, L)
+                hit = pos.sum(0) <= max_dist
+                for sp in range(s):        # an earlier slice matches
+                    hit &= pos[4 * sp:4 * sp + 4].any(0)
+                for r in np.flatnonzero(hit):
+                    cells = [r // chunk, C - 1]
+                    if superchunk:
+                        cells.append(nchmax + r // chunk // superchunk)
+                    for c in cells:
+                        cnt[s, b, c, j] += 1
+                        rsum[s, b, c, j] += r
+                        rmin[s, b, c, j] = min(rmin[s, b, c, j], r)
+                        rmax[s, b, c, j] = max(rmax[s, b, c, j], r)
+    return cnt, rsum, rmin, rmax
+
+
+@pytest.mark.parametrize("name,superchunk", [("data", 0), ("deep", 2),
+                                             ("deep", 0)])
+def test_plain_finder_vs_numpy(datasets, name, superchunk):
+    index, queries = datasets[name]
+    pidx = port_index(index)
+    chunk = 1024
+    S, B = pidx.slice_count, pidx.bucket_count
+    arrs = pidx.device_arrays_aligned(align=ALIGN, tail=chunk)
+    nchmax = max(1, -(-int(arrs["bucket_lens"].max()) // chunk))
+    qb = 64
+    want_plan = _numpy_slot_plan(queries, S, B, qb)
+    q_sig = torch.as_tensor(queries.view(np.int64))
+    qsp = plan_slots(q_sig, S, B, qb)
+    np.testing.assert_array_equal(qsp.numpy(), want_plan)
+    lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
+    hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
+    fo = compact_finder(
+        torch.as_tensor((lo | (hi << np.uint64(32))).view(np.int64)),
+        torch.as_tensor(arrs["bucket_offsets"][:, :B].astype(np.int64)),
+        torch.as_tensor(arrs["bucket_lens"]), q_sig, qsp, chunk=chunk,
+        nchmax=nchmax, superchunk=superchunk, max_dist=4)
+    want = _numpy_finder(pidx, queries, want_plan, chunk, nchmax,
+                         superchunk, 4)
+    for got, exp in zip(fo[:4], want):
+        np.testing.assert_array_equal(got.numpy(), exp)
+    assert int(fo.cnt.sum()) > 0
+
+
+# -- the scorer against the JAX engine -------------------------------------
+
+JAX_CASES = {
+    "data": ("data", dict(query_page=64, chunk=1024)),
+    "deep-tree": ("deep", dict(query_page=32, chunk=1024, superchunk=2)),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_runs(datasets):
+    out = {}
+    for case, (name, kw) in JAX_CASES.items():
+        index, queries = datasets[name]
+        sc = JaxCompact(index, max_dist=4, interpret=True, **kw)
+        out[case] = (sc.score_sums(queries), sc.page_stats)
+    return out
+
+
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_compact_matches_jax(datasets, jax_runs, case):
+    name, kw = JAX_CASES[case]
+    index, queries = datasets[name]
+    sc = CompactIsslScorer(port_index(index), max_dist=4, device="cpu",
+                           auto_caps=False, **kw)
+    sums = sc.score_sums(queries)
+    jax_sums, jax_stats = jax_runs[case]
+    assert sc.page_stats == jax_stats
+    _assert_sums(sums, jax_sums)
+    _assert_sums(sums, score_bruteforce(queries, index.site_sigs,
+                                        index.occurrences, 4))
+    if case == "deep-tree":                     # every tree stage fired
+        assert all(p > 0 for p in sc.page_stats[0][1:5])
+
+
+# -- the scorer's paging and caps against brute force ----------------------
+
+
+def _queries_page_of_sites(index):
+    # distinct sites: every query self-hits, so each 8-query page has
+    # more than 8 direct (1-2 hit) slots
+    return np.asarray(index.site_sigs[10:42:2], dtype=np.uint64)
+
+
+CAP_CASES = {
+    # two pages (page < n) reproduce the single-page sums
+    "paging": ("data", dict(query_page=16), None),
+    # cap_single < the page's direct slots: the page splits and retries
+    "overflow-splits": ("data", dict(query_page=64, nz_cap=24), None),
+    # superchunk-level caps below the populations: split and retry
+    "sc-overflow-splits": ("deep", dict(query_page=32, superchunk=2,
+                                        caps=TINY_SC_CAPS), None),
+    # the flat (no superchunk) decode of a multi-chunk bucket
+    "flat-decode": ("deep", dict(query_page=32, superchunk=0), None),
+    # auto caps: the first page tunes every cap to its population
+    "auto-tune": ("data", dict(query_page=16, auto_caps=True), None),
+    # auto caps starting far too small: a page overflows, grows, retries
+    "auto-grow": ("data", dict(query_page=64, nz_cap=8, auto_caps=True),
+                  "tuned"),
+    # two pages dispatched under the same tiny caps; the second is checked
+    # against the caps it ran with, not the caps the first one grew
+    "dispatch-caps": ("data", dict(query_page=8, nz_cap=4, auto_caps=True),
+                      "tuned-sites"),
+}
+
+
+@pytest.mark.parametrize("case", list(CAP_CASES))
+def test_compact_paging_and_caps_vs_bruteforce(datasets, case):
+    name, kw, mode = CAP_CASES[case]
+    index, queries = datasets[name]
+    if mode == "tuned-sites":
+        queries = _queries_page_of_sites(index)
+    sc = CompactIsslScorer(port_index(index), max_dist=4, chunk=1024,
+                           device="cpu", **kw)
+    if mode:
+        sc._tuned = True                # skip first-page tuning
+    sums = sc.score_sums(queries)
+    _assert_sums(sums, score_bruteforce(queries, index.site_sigs,
+                                        index.occurrences, 4))
+    stats = np.array(sc.page_stats)
+    if case in ("overflow-splits", "sc-overflow-splits"):
+        assert len(sc.page_stats) > 1
+    elif case == "flat-decode":
+        assert stats.max(0)[4] > 0 and stats.max(0)[5] > 0
+    elif case == "auto-tune":
+        assert sc._tuned and sc.cap_single < (1 << 17)
+        assert all(c >= p for c, p in zip(sc._caps(), sc.page_stats[0]))
+    elif case == "auto-grow":
+        assert len(sc.page_stats) > 1 and sc.cap_single > 8
+    elif case == "dispatch-caps":
+        n_pages = -(-queries.shape[0] // 8)
+        assert n_pages >= 2 and len(sc.page_stats) >= 2 * n_pages
+
+
+def test_quant_cap_matches_jax():
+    for pop in (0, 1, 100, 4096, 5595, 10000, 34592, 99999, 292927):
+        assert _quant_cap(pop) == jax_quant_cap(pop)
+
+
+def test_rank_bound_guard_raises():
+    from crackling_tpu_torch.index.build import IsslIndex
+
+    n = 1 << 22                      # one slice-0 bucket of 2^22 entries
+    sigs = (np.arange(n, dtype=np.uint64) << np.uint64(8)) | np.uint64(0x55)
+    index = IsslIndex(seq_length=20, slice_width=8, seq_count=n,
+                      site_sigs=sigs, occurrences=np.ones(n, np.uint32))
+    with pytest.raises(ValueError, match="2\\^22"):
+        CompactIsslScorer(index, max_dist=4, device="cpu")
+
+
+def test_adversarial_deviation_within_band_margin(adversarial):  # noqa: F811
+    index, queries, mit_f64, cfd_f64 = adversarial
+    sc = CompactIsslScorer(port_index(index), max_dist=4, query_page=64,
+                           chunk=1024, device="cpu")
+    mit, cfd = sc.score(queries)
+    dev = max(np.abs(mit - mit_f64).max(), np.abs(cfd - cfd_f64).max())
+    assert dev < COMPACT_MARGIN

@@ -1,0 +1,89 @@
+"""The PyTorch hybrid (compact + exact host re-score) against exact scoring.
+
+For all five methods the hybrid's verdicts must equal the reference's
+(its early exit included), and every query it re-scores must carry the
+reference's ``%f`` scores. The reference is the binary where it can be
+built (``ref_bins``), and everywhere ``oracle.score_exact``, the JAX
+package's bit-exact emulation of it (itself held to the binary by
+tests/test_scorer.py). Inputs: tests/test_native_exact.py's dataset,
+handed over through ``convert.index_from_arrays``; the port on the CPU.
+"""
+
+import subprocess
+
+import numpy as np
+import pytest
+
+from crackling_tpu.codec import sigs_to_strings
+from crackling_tpu.ops.oracle import score_exact
+from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+from crackling_tpu_torch.pipeline.run import verdicts
+from test_native_exact import data  # noqa: F401  (shared fixture)
+from test_torch_compact import port_index
+
+METHODS = [("mit", 80.0), ("cfd", 80.0), ("and", 75.0), ("or", 75.0),
+           ("avg", 90.0)]
+
+
+@pytest.fixture(scope="module")
+def world(data):  # noqa: F811
+    return data
+
+
+# (re-scorer, band): the hybrid's own band re-scores only what rounding
+# could flip; an infinite band sends every query through the re-scorer
+CHAINS = [("native", None), ("native", np.inf), ("oracle", np.inf)]
+
+
+@pytest.mark.parametrize("exact,band", CHAINS)
+@pytest.mark.parametrize("method,thr", METHODS)
+def test_hybrid_matches_exact_emulation(world, method, thr, exact, band):
+    index, queries = world
+    hy = HybridIsslScorer(port_index(index), max_dist=4, method=method,
+                          threshold=thr, band=band, device="cpu",
+                          query_page=64, chunk=1024)
+    if exact == "oracle":            # the chain's no-toolchain link
+        from crackling_tpu_torch.ops import hybrid
+
+        hy._exact = hybrid._OracleExact(hy.index, 4, thr, method)
+    mit, cfd = hy.score(queries)
+    ref_mit, ref_cfd = score_exact(index, queries, 4, thr, method)
+    np.testing.assert_array_equal(verdicts(mit, cfd, thr, method),
+                                  verdicts(ref_mit, ref_cfd, thr, method))
+    near = hy._near_threshold(*hy.dense.score(queries))
+    assert hy.last_rescored == int(near.sum())
+    if band == np.inf:
+        assert near.all()
+    for a, b in ((mit, ref_mit), (cfd, ref_cfd)):
+        assert ["%f" % x for x in a[near]] == ["%f" % x for x in b[near]]
+
+
+@pytest.mark.parametrize("method,thr", METHODS)
+def test_hybrid_matches_reference_binary(world, ref_bins, tmp_path, method,
+                                         thr):
+    from crackling_tpu_torch.index import write_reference_issl
+
+    index, queries = world
+    pidx = port_index(index)
+    issl = tmp_path / "t.issl"
+    write_reference_issl(pidx, str(issl))
+    qfile = tmp_path / "q.txt"
+    qfile.write_text("".join(s + "\n" for s in sigs_to_strings(queries, 20)))
+    out = subprocess.run(
+        [ref_bins["isslScoreOfftargets"], str(issl), str(qfile), "4",
+         str(thr), method], capture_output=True, text=True, check=True)
+    rows = [line.split("\t") for line in out.stdout.strip().split("\n")]
+    ref_mit = np.array([float(r[1]) for r in rows])
+    ref_cfd = np.array([float(r[2]) for r in rows])
+    hy = HybridIsslScorer(pidx, max_dist=4, method=method, threshold=thr,
+                          device="cpu", query_page=64, chunk=1024)
+    mit, cfd = hy.score(queries)
+    np.testing.assert_array_equal(verdicts(mit, cfd, thr, method),
+                                  verdicts(ref_mit, ref_cfd, thr, method))
+    near = hy._near_threshold(*hy.dense.score(queries))
+    calc = {"mit": (True, False), "cfd": (False, True)}.get(method,
+                                                           (True, True))
+    for on, a, b in zip(calc, (mit, cfd), (ref_mit, ref_cfd)):
+        if on:
+            assert ["%f" % x for x in a[near]] == \
+                ["%f" % x for x in b[near]]

@@ -1,0 +1,72 @@
+"""The PyTorch package and chip_smoke.py stand alone: no JAX, nothing of
+``crackling_tpu``.
+
+Checked in a subprocess, because this test process already imported jax
+(tests/conftest.py). The same subprocess checks that the entry points
+default to the GPU and raise without one, rather than running on the CPU.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import torch
+import crackling_tpu_torch as pkg
+
+mods = []
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+    mods.append(m.name)
+import chip_smoke  # noqa: F401  (the GPU smoke script, same rule)
+leaked = sorted(k for k in sys.modules
+                if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+                or k == "crackling_tpu" or k.startswith("crackling_tpu."))
+
+import numpy as np
+from crackling_tpu_torch.index import build_index
+from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+from crackling_tpu_torch.pipeline.run import Pipeline
+
+index = build_index(np.arange(1, 300, dtype=np.uint64) * 7919)
+raised = {}
+if not torch.cuda.is_available():
+    class _CM:
+        _parser = None
+    for name, make in (("compact", lambda: CompactIsslScorer(index)),
+                       ("hybrid", lambda: HybridIsslScorer(index)),
+                       ("pipeline", lambda: Pipeline(_CM()))):
+        try:
+            make()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "CUDA" in str(e)
+print(json.dumps({"mods": mods, "leaked": leaked, "raised": raised}))
+"""
+
+
+def _probe():
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    res = _probe()
+    # every module of the port was imported ...
+    assert "crackling_tpu_torch.ops.issl_compact" in res["mods"]
+    assert "crackling_tpu_torch.utils.cli" in res["mods"]
+    # ... and none of them brought in JAX or the JAX package
+    assert res["leaked"] == []
+    # without a GPU, entry points not asked for the CPU refuse to run
+    import torch
+
+    if not torch.cuda.is_available():
+        assert res["raised"] == {"compact": True, "hybrid": True,
+                                 "pipeline": True}
