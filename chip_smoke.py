@@ -6,23 +6,48 @@
 Needs one CUDA GPU, ``nvcc`` (PATH or /usr/local/cuda/bin) and ``g++``.
 Phases, each fatal on failure:
 
-1. build the kernel library (nvcc, sm_90a) and the native host library
-   (g++) from the package's sources, in parallel; print the card;
+1. build the two kernel libraries (nvcc, sm_90a: the compact finder and
+   the neighbour finder) and the native host library (g++) from the
+   package's sources, in parallel; print the card;
 2. hold the compact finder kernel against its plain PyTorch version,
    cell for cell (exact), on a small index, a skewed index whose deep
    bucket turns the superchunk level on, and 16 buckets of the full page;
 3. score one 65,536-query page at the 27 Mbp operating point (synthetic
-   genome, seed 20260816, cached under .cache/chip_smoke/): time the
-   finder and the decode with CUDA events and the page with the host
-   clock; check a 2,048-query sample against the exact host scorer
-   (sums within rtol 1e-4, hybrid verdicts identical for ``and``);
-   then profile one warm page (device busy share, per-span device time);
-4. the hybrid's verdicts for all five methods against ``score_exact``
-   on the small index;
-5. ``Crackling -c config.ini`` through its CLI entry point on the GPU,
-   with the finder's launch counter reset just before and read just
-   after (it must have launched; the plain finder must not have run);
-6. print the kernels line and, last, the device line.
+   genome, seed 20260816, cached under .cache/chip_smoke/) with the
+   compact engine: time the finder and the decode with CUDA events and
+   the page with the host clock; check a 2,048-query sample against the
+   exact host scorer (sums within rtol 1e-4, hybrid verdicts identical
+   for ``and``); then profile one warm page (device busy share, per-span
+   device time);
+4. hold the neighbour finder kernel (the MXU engine's) against its plain
+   version, cell for cell (exact), on the small index, the skewed index
+   and 16 buckets of a 32,768-query page of the 27 Mbp index;
+5. score that page with the MXU engine: finder and decode times (CUDA
+   events), host plan, self-lookup and replay times, page wall time, and
+   a 2,048-query sample ``np.array_equal`` to the native exact scorer
+   (both f64, the reference's scan order and early exit); profile one
+   warm page; and on the small index all five methods
+   ``np.array_equal`` to ``score_exact``;
+6. the flat exact engine on the card: the small index, five methods, f64
+   (rtol 1e-12) and f32 (identical verdicts) against ``score_exact``;
+   and a 2,048-query sample of the 27 Mbp index in f32, timed, with
+   verdicts identical to the native exact scorer's; then a 256-query
+   page timed at the GPU's work block and at the JAX engine's 2^17, in
+   turns;
+7. the hybrid's verdicts for all five methods against ``score_exact`` on
+   the small index, with its own band and with an infinite one, which
+   re-scores every query through the neighbour finder on the card;
+8. ``Crackling -c config.ini`` through its CLI entry point on the GPU
+   twice, every kernel's launch counter and plain-call counter reset
+   just before each run and read just after: ``engine = auto`` (the
+   compact finder must have launched), then ``engine = exact`` on the
+   same files (the neighbour finder must have launched), with no plain
+   version run in either; the ``exact`` run's ``passedOffTargetScore``
+   column must equal the ``auto`` run's row by row;
+9. ``scoreOfftargets`` through its CLI entry point on the GPU against a
+   2,048-query file of the 27 Mbp index: verdicts identical to the
+   native exact scorer's, scores within its f32 tier (``SCORE_RTOL``);
+10. print the kernels line and, last, the device line.
 
 The first, uncached run also builds the 27 Mbp dataset (~17 s of host
 work on an 8-core H100 host); ``CHIP_SMOKE_GENOME_MBP`` /
@@ -51,9 +76,22 @@ H100_BYTES_PER_S = 3.35e12
 # the published float32 rate outside the tensor cores: the peak table's
 # only rate for scalar 32-bit ALU work
 H100_ALU_OPS_PER_S = 67e12
-# 32-bit integer operations per (slot, entry) pair of the finder's hit
-# test: 2 xor, 2 shift, 2 or, 2 and (pair collapse), 2 popc, add, compare
+# 32-bit integer operations per (slot, entry) pair of the compact
+# finder's hit test: 2 xor, 2 shift, 2 or, 2 and (pair collapse), 2 popc,
+# add, compare
 FINDER_OPS_PER_PAIR = 12
+# ... and of the neighbour finder's: the same and a subtract, for the
+# 1..max_dist range test
+MXU_OPS_PER_PAIR = 13
+# the MXU engine's page (its default query_page)
+MXU_PAGE = min(32768, N_QUERIES)
+SAMPLE = 2048
+# scoreOfftargets' f32 tier against the exact f64 scores: per-hit f32
+# terms carry ~1e-6 relative error, sums are TwoSum-compensated, and the
+# printed %f rounds to 5e-7
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+METHODS = (("mit", 80.0), ("cfd", 80.0), ("and", 75.0), ("or", 75.0),
+           ("avg", 90.0))
 
 
 def log(msg):
@@ -95,6 +133,19 @@ def timed_ms(fn, reps, dev):
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def host_walls(fn, dev, reps=3):
+    """Host-clock seconds of ``reps`` calls of ``fn``, each ending in a
+    device synchronise."""
+    out = []
+    for _ in range(reps):
+        sync(dev)
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append(time.perf_counter() - t)
+    return out
 
 
 def card_line():
@@ -214,17 +265,21 @@ def bench_dataset():
 
 def phase_build():
     from crackling_tpu_torch import native
-    from crackling_tpu_torch.ops import compact_finder as cf
+    from crackling_tpu_torch.ops.kernel_build import build_library
 
-    with ThreadPoolExecutor(2) as ex:
-        kern = ex.submit(cf.build_kernel_library)
+    sources = ("compact_finder.cu", "mxu_finder.cu")
+    with ThreadPoolExecutor(len(sources) + 1) as ex:
+        kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
-        lib_path = kern.result()
+        libs = [k.result() for k in kerns]
         if host.result() is None:
             fail("the native host library did not build (g++)")
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel_library": str(lib_path.name),
+    ptxas = {}
+    for src, lib in zip(sources, libs):
+        ptxas[src] = [ln.strip() for ln in lib.with_suffix(".log")
+                      .read_text().splitlines()
+                      if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "kernel_libraries": [p.name for p in libs],
           "ptxas": ptxas})
 
 
@@ -397,20 +452,20 @@ def phase_scorer(dev, scorer, queries, card):
                 bound_by=bound_by)
 
 
-def phase_profile(dev, scorer, queries):
-    """One warm page under torch.profiler: device busy time and idle
-    share over the page's wall time, kernel launches, the device time of
-    each span of the page program (compact.plan / compact.decode.*) and
-    the torch ops that take the most device time (the finder kernel is
-    timed on its own in phase 3)."""
+def phase_profile(dev, run, prefix):
+    """One warm call of ``run`` (a page) under torch.profiler: device busy
+    time and idle share over the page's wall time, kernel launches, the
+    device time of each ``prefix`` span of the page program and the torch
+    ops that take the most device time (the finder kernels are timed on
+    their own)."""
     from torch.profiler import ProfilerActivity, profile
 
-    scorer.score_sums(queries)
+    run()
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        scorer.score_sums(queries)
+        run()
         sync(dev)
         wall_ms = (time.perf_counter() - t) * 1e3
 
@@ -427,49 +482,302 @@ def phase_profile(dev, scorer, queries):
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("compact.")]
+               and not e.name.startswith(prefix)]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     avgs = prof.key_averages()
     spans = {e.key: dev_us(e, False) / 1e3 for e in avgs
-             if e.key.startswith("compact.")}
+             if e.key.startswith(prefix)}
     top = sorted(((dev_us(e, True) / 1e3, e.count, e.key[:60])
                   for e in avgs if dev_us(e, True) > 0
                   and e.key.startswith("aten::")), reverse=True)[:10]
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    emit({"phase": "profile", "spans": prefix, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
           "kernel_launches": len(kernels), "span_device_ms": spans,
           "top_ops_device_ms": [[k, c, ms] for ms, c, k in top]})
 
 
+def compare_mxu(eng, q, qsp, blen=None):
+    """Neighbour finder kernel vs its plain version on the same device
+    tensors; exact."""
+    from crackling_tpu_torch.ops.mxu_finder import (mxu_finder,
+                                                    mxu_finder_plain)
+
+    args = (eng.entries, eng.bucket_offsets,
+            eng.bucket_lens if blen is None else blen, q, qsp)
+    kw = dict(segw=eng.segw, nseg=eng.nseg, max_dist=eng.max_dist,
+              seq_length=eng.index.seq_length)
+    got = mxu_finder(*args, **kw)
+    want = mxu_finder_plain(*args, **kw)
+    sync(q.device)
+    err = 0
+    for name, a, b in zip(("cnt", "rsum"), got, want):
+        diff = int((a.long() - b.long()).abs().max())
+        err = max(err, diff)
+        if diff:
+            fail(f"neighbour finder kernel disagrees with its plain version "
+                 f"on {name} ({int((a != b).sum())} cells)")
+    return err, int(want.cnt.sum())
+
+
+def mxu_inputs(eng, page):
+    """The neighbour finder's inputs for one page on the engine's device
+    (the slot plan the engine itself makes)."""
+    import torch
+
+    qsp, _qb = eng._plan(page)
+    return eng.query_tensor(page), torch.as_tensor(qsp, device=eng.device)
+
+
+def phase_mxu_kernel_vs_plain(dev, bench_eng, page):
+    from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
+
+    errs = []
+    index, queries = small_world()
+    eng = MxuIsslScorer(index, max_dist=4, chunk=1024, device=dev)
+    e, hits = compare_mxu(eng, *mxu_inputs(eng, queries))
+    errs.append(e)
+    emit({"phase": "mxu_kernel_vs_plain", "input": "small",
+          "neighbours": hits, "max_abs_err": e})
+
+    index, queries = skewed_world()
+    eng = MxuIsslScorer(index, max_dist=4, chunk=1024, device=dev)
+    e, hits = compare_mxu(eng, *mxu_inputs(eng, queries))
+    errs.append(e)
+    emit({"phase": "mxu_kernel_vs_plain", "input": "skewed",
+          "nseg": eng.nseg, "segw": eng.segw, "neighbours": hits,
+          "max_abs_err": e})
+
+    # 8 buckets each of slices 0 and 4 of the page: other buckets are
+    # given length 0, so both versions skip them
+    q, qsp = mxu_inputs(bench_eng, page)
+    blen = bench_eng.bucket_lens.clone()
+    keep = blen.new_zeros(blen.shape, dtype=bool)
+    keep[0, 40:48] = True
+    keep[-1, 200:208] = True
+    blen[~keep] = 0
+    e, hits = compare_mxu(bench_eng, q, qsp, blen)
+    errs.append(e)
+    emit({"phase": "mxu_kernel_vs_plain", "input": "bench page, 16 buckets",
+          "qb": qsp.shape[2], "nseg": bench_eng.nseg, "neighbours": hits,
+          "max_abs_err": e})
+    return max(errs)
+
+
+def mxu_bound_ms(eng, q, qsp):
+    """Least time for the neighbour finder's work on this page: the larger
+    of its operations over the ALU peak and its bytes (bucket entries,
+    plan, queries and offsets read once, the two planes written once) over
+    HBM bandwidth."""
+    n = q.numel()
+    qcount = ((qsp >= 0) & (qsp < n)).sum(-1).long()
+    blen = eng.bucket_lens.long()
+    pairs = int((blen * qcount).sum())
+    S, B, qb = qsp.shape
+    nbytes = (int(blen.sum()) * 8 + qsp.numel() * 4 + n * 8 + S * B * 12
+              + S * B * eng.nseg * qb * 12)
+    t_ops = pairs * MXU_OPS_PER_PAIR / H100_ALU_OPS_PER_S * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), pairs
+
+
+def phase_mxu_page(dev, eng, page, card):
+    """The MXU engine on one page of the 27 Mbp index."""
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.ops.mxu_finder import mxu_finder_plain
+
+    eng.score(page)                                     # warm
+    walls = host_walls(lambda: eng.score(page), dev)
+    page_s = float(np.median(walls))
+    # the page's parts, host clock, medians of 3: plan + finder + decode
+    # (with the hit table's copy to the host), plan alone, self-lookup;
+    # the replay is what the page spends beyond them
+    device_s = float(np.median(host_walls(lambda: eng._run_pages(page),
+                                          dev)))
+    plan_ms = float(np.median(host_walls(lambda: eng._plan(page), dev))) \
+        * 1e3
+    lookup_ms = float(np.median(host_walls(lambda: eng._self_lookup(page),
+                                           dev))) * 1e3
+    stats = eng.page_stats[-1]
+    # the replay's rows: the decoded hits and every flagged query's
+    # self-hit once per slice
+    runs = eng._run_pages(page)
+    counts = np.concatenate([r[1] for r in runs])
+    flagged = counts > 0
+    replay_rows = (sum(r[2].size for r in runs)
+                   + int((flagged & eng._self_lookup(page)[0]).sum()) * eng.S)
+    q, qsp = mxu_inputs(eng, page)
+    planes = eng.finder(q, qsp)
+    finder_ms = timed_ms(lambda: eng.finder(q, qsp), 3, dev)
+    decode_ms = timed_ms(lambda: eng.decode(q, qsp, planes), 3, dev)
+    del planes
+    sync(dev)
+    t = time.perf_counter()
+    mxu_finder_plain(eng.entries, eng.bucket_offsets, eng.bucket_lens, q,
+                     qsp, segw=eng.segw, nseg=eng.nseg,
+                     max_dist=eng.max_dist, seq_length=eng.index.seq_length)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    bound_ms, bound_by, pairs = mxu_bound_ms(eng, q, qsp)
+
+    rng = np.random.default_rng(SEED + 2)
+    sample = page[rng.choice(page.shape[0], size=min(SAMPLE, page.shape[0]),
+                             replace=False)]
+    got = eng.score(sample)
+    want = native.exact_score_native(eng.index, sample, 4, 75.0, "and")
+    if want is None:
+        fail("native exact scorer unavailable")
+    for name, g, w in zip(("mit", "cfd"), got, want):
+        if not np.array_equal(g, w):
+            fail(f"MXU engine {name} scores differ from the native exact "
+                 f"scorer on {int((g != w).sum())} of {len(sample)} queries")
+    emit({"phase": "mxu_page", "card": card, "device": str(dev),
+          "sites": eng.index.num_sites, "queries": int(page.shape[0]),
+          "qb": int(qsp.shape[2]), "nseg": eng.nseg, "segw": eng.segw,
+          "pairs": pairs, "page_stats": list(stats),
+          "flagged_queries": int(flagged.sum()), "replay_rows": replay_rows,
+          "page_wall_s": walls, "device_pages_s": device_s,
+          "plan_ms": plan_ms, "self_lookup_ms": lookup_ms,
+          "replay_ms": (page_s - device_s) * 1e3 - lookup_ms,
+          "finder_ms": finder_ms, "decode_ms": decode_ms,
+          "finder_plain_ms": plain_ms, "finder_bound_ms": bound_ms,
+          "finder_bound_by": bound_by,
+          "exact_guides_per_s": page.shape[0] / page_s,
+          "sample_equal": len(sample)})
+    return dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_mxu_small(dev):
+    from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
+    from crackling_tpu_torch.ops.oracle import score_exact
+
+    index, queries = small_world()
+    for method, thr in METHODS:
+        eng = MxuIsslScorer(index, max_dist=4, method=method, threshold=thr,
+                            device=dev)
+        for name, g, w in zip(("mit", "cfd"), eng.score(queries),
+                              score_exact(index, queries, 4, thr, method)):
+            if not np.array_equal(g, w):
+                fail(f"MXU engine {name} scores differ from score_exact "
+                     f"({method})")
+    emit({"phase": "mxu_small", "methods": [m for m, _ in METHODS],
+          "bit_exact": True})
+
+
+def phase_flat(dev, index, queries):
+    """The flat exact engine on the card: f64 and f32 on the small index,
+    then an f32 sample of the 27 Mbp index."""
+    import torch
+
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.ops.issl_flat import IsslScorer
+    from crackling_tpu_torch.ops.oracle import score_exact
+    from crackling_tpu_torch.pipeline.run import verdicts
+
+    calc = {"mit": (True, False), "cfd": (False, True)}
+    sw_index, sw_queries = small_world()
+    for method, thr in METHODS:
+        ref = score_exact(sw_index, sw_queries, 4, thr, method)
+        for dtype in (torch.float64, torch.float32):
+            got = IsslScorer(sw_index, max_dist=4, method=method,
+                             threshold=thr, dtype=dtype,
+                             device=dev).score(sw_queries)
+            if not np.array_equal(verdicts(*got, thr, method),
+                                  verdicts(*ref, thr, method)):
+                fail(f"flat engine ({dtype}) verdicts differ from "
+                     f"score_exact ({method})")
+            if dtype == torch.float64:
+                for on, g, r in zip(calc.get(method, (True, True)), got,
+                                    ref):
+                    if on and not np.allclose(g, r, rtol=1e-12, atol=0):
+                        fail(f"flat engine f64 scores differ from "
+                             f"score_exact ({method})")
+    rng = np.random.default_rng(SEED + 3)
+    sample = queries[rng.choice(queries.shape[0], size=SAMPLE,
+                                replace=False)]
+    eng = IsslScorer(index, max_dist=4, method="and", threshold=75.0,
+                     dtype=torch.float32, device=dev)
+    eng.score(sample[:256])                                # warm
+    sync(dev)
+    t = time.perf_counter()
+    got = eng.score(sample)
+    flat_s = time.perf_counter() - t
+    want = native.exact_score_native(index, sample, 4, 75.0, "and")
+    if not np.array_equal(verdicts(*got, 75.0, "and"),
+                          verdicts(*want, 75.0, "and")):
+        fail("flat engine f32 verdicts differ from the native exact scorer")
+    rel = max(float((np.abs(g - w) / w).max()) for g, w in zip(got, want))
+    # the GPU's work block against the JAX engine's 2^17, in turns, on a
+    # 256-query page (the exit emulation stops at the same hit at any
+    # round size)
+    jax_wb = IsslScorer(index, max_dist=4, method="and", threshold=75.0,
+                        dtype=torch.float32, device=dev,
+                        work_block=1 << 17)
+    wb_s = {jax_wb.work_block: [], eng.work_block: []}
+    for e in (jax_wb, eng, eng, jax_wb):
+        e.score(sample[:32])
+        wb_s[e.work_block] += host_walls(
+            lambda e=e: e.score(sample[:256]), dev, reps=1)
+    emit({"phase": "flat", "small_methods": [m for m, _ in METHODS],
+          "sample": SAMPLE, "work_block": eng.work_block, "sample_s": flat_s,
+          "guides_per_s": SAMPLE / flat_s, "sample_max_rel_err": rel,
+          "page256_s_by_work_block": wb_s})
+
+
 def phase_hybrid_methods(dev):
     from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.ops.mxu_finder import mxu_finder
     from crackling_tpu_torch.ops.oracle import score_exact
     from crackling_tpu_torch.pipeline.run import verdicts
 
     index, queries = small_world()
-    res = {}
-    for method, thr in (("mit", 80.0), ("cfd", 80.0), ("and", 75.0),
-                        ("or", 75.0), ("avg", 90.0)):
+    res, launches = {}, {}
+    for method, thr in METHODS:
         want = verdicts(*score_exact(index, queries, 4, thr, method), thr,
                         method)
         for band in (None, np.inf):
+            before = mxu_finder.launches
             hy = HybridIsslScorer(index, max_dist=4, method=method,
                                   threshold=thr, band=band, device=dev,
                                   chunk=1024)
             got = verdicts(*hy.score(queries), thr, method)
             if not np.array_equal(got, want):
                 fail(f"hybrid verdicts differ from score_exact ({method})")
+        # the infinite band re-scored every query through the MXU engine's
+        # neighbour finder on the card
+        launches[method] = mxu_finder.launches - before
+        if torch_is_cuda(dev) and launches[method] <= 0:
+            fail("the hybrid's exact re-score did not launch the "
+                 "neighbour finder")
         res[method] = int(want.sum())
-    emit({"phase": "hybrid_methods", "accepted": res})
+    emit({"phase": "hybrid_methods", "accepted": res,
+          "mxu_finder_launches_band_inf": launches})
 
 
-def phase_pipeline(dev, files):
+def torch_is_cuda(dev):
+    import torch
+
+    return torch.device(dev).type == "cuda"
+
+
+def phase_pipeline(dev, files, engine):
+    """``Crackling -c`` with ``[tpu] engine = <engine>``. Every kernel's
+    launch count and its plain version's call count are set to 0 just
+    before the run and read just after: the finder that engine runs (the
+    compact one for ``auto``, the neighbour finder for ``exact``) must
+    have launched, and no plain version may have run. Returns (launches
+    of that finder, rows)."""
     from crackling_tpu_torch.constants import GUIDE_COLUMNS
-    from crackling_tpu_torch.ops.compact_finder import (compact_finder,
-                                                        compact_finder_plain)
+    from crackling_tpu_torch.ops import compact_finder as cf
+    from crackling_tpu_torch.ops import mxu_finder as mf
     from crackling_tpu_torch.utils import cli
 
-    out = CACHE / "pipeline_out"
+    kernels = {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
+               "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain)}
+    main = "compact_finder" if engine == "auto" else "mxu_finder"
+    out = CACHE / f"pipeline_{engine}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     cfg = out / "config.ini"
@@ -521,29 +829,29 @@ low_energy_threshold = -30
 high_energy_threshold = -18
 
 [tpu]
-engine = auto
+engine = {engine}
 """)
-    import torch
-
-    on_gpu = torch.device(dev).type == "cuda"
+    on_gpu = torch_is_cuda(dev)
     if on_gpu:
         os.environ.pop("CRACKLING_PLATFORM", None)
     else:
         os.environ["CRACKLING_PLATFORM"] = "cpu"
     # the main path's run: counts start at 0 just before, are read after
-    compact_finder.launches = 0
-    compact_finder_plain.calls = 0
+    for kernel, plain in kernels.values():
+        kernel.launches = 0
+        plain.calls = 0
     t = time.perf_counter()
     cli.main_crackling(["-c", str(cfg)])
     sync(dev)
     wall = time.perf_counter() - t
-    launches = compact_finder.launches
-    plain_calls = compact_finder_plain.calls
+    launches = {k: kp[0].launches for k, kp in kernels.items()}
+    plain_calls = {k: kp[1].calls for k, kp in kernels.items()}
     if on_gpu:
-        if launches <= 0:
-            fail("Crackling ran without launching the finder kernel")
-        if plain_calls:
-            fail("the plain finder ran on the GPU path")
+        if launches[main] <= 0:
+            fail(f"Crackling (engine = {engine}) ran without launching "
+                 f"{main}")
+        if any(plain_calls.values()):
+            fail(f"a plain finder ran on the GPU path: {plain_calls}")
     import csv
 
     out_csv = out / "smoke-guides.txt"
@@ -561,13 +869,74 @@ engine = auto
             if not 0.0 < float(r[col[c]]) <= 100.0:
                 fail(f"{c} out of (0, 100]: {r[col[c]]}")
     metrics = json.loads((out / "smoke-guides.txt.metrics.json").read_text())
-    emit({"phase": "pipeline", "guides": len(rows) - 1,
+    emit({"phase": "pipeline", "engine": engine, "guides": len(rows) - 1,
           "scored": len(scored),
           "accepted": sum(r[col["passedOffTargetScore"]] == "1"
                           for r in scored),
-          "finder_launches": launches, "plain_finder_calls": plain_calls,
-          "wall_s": wall, "stage_seconds": metrics["stage_seconds"]})
-    return launches
+          "kernel": main, "launches": launches,
+          "plain_calls": plain_calls, "wall_s": wall,
+          "stage_seconds": metrics["stage_seconds"]})
+    return launches[main], rows
+
+
+def same_verdicts(rows_a, rows_b):
+    """Fail unless two pipeline CSVs list the same guides with the same
+    ``passedOffTargetScore``, row by row."""
+    col = rows_a[0].index("passedOffTargetScore")
+    if len(rows_a) != len(rows_b):
+        fail("the engine = exact run wrote another number of rows")
+    diff = sum(a[0] != b[0] or a[col] != b[col]
+               for a, b in zip(rows_a[1:], rows_b[1:]))
+    if diff:
+        fail(f"engine = exact and engine = auto disagree on "
+             f"passedOffTargetScore in {diff} rows")
+
+
+def phase_score_offtargets(dev, index, queries, files):
+    """``scoreOfftargets`` through its CLI entry point on a 2,048-query
+    file: verdicts identical to the native exact scorer's, scores within
+    SCORE_RTOL / SCORE_ATOL of its f64 scores."""
+    import contextlib
+    import io
+
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.codec import sigs_to_strings
+    from crackling_tpu_torch.pipeline.run import verdicts
+    from crackling_tpu_torch.utils import cli
+
+    rng = np.random.default_rng(SEED + 4)
+    sample = queries[rng.choice(queries.shape[0], size=SAMPLE,
+                                replace=False)]
+    qfile = CACHE / "score_queries.txt"
+    qfile.write_text("".join(s + "\n" for s in sigs_to_strings(sample, 20)))
+    if torch_is_cuda(dev):
+        os.environ.pop("CRACKLING_PLATFORM", None)
+    else:
+        os.environ["CRACKLING_PLATFORM"] = "cpu"
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main_score_offtargets([str(files["issl"]), str(qfile), "4", "75",
+                                   "and"])
+    wall = time.perf_counter() - t
+    rows = [ln.split("\t") for ln in buf.getvalue().splitlines()]
+    if len(rows) != SAMPLE:
+        fail(f"scoreOfftargets printed {len(rows)} lines for {SAMPLE} "
+             "queries")
+    got = (np.array([float(r[1]) for r in rows]),
+           np.array([float(r[2]) for r in rows]))
+    want = native.exact_score_native(index, sample, 4, 75.0, "and")
+    if not np.array_equal(verdicts(*got, 75.0, "and"),
+                          verdicts(*want, 75.0, "and")):
+        fail("scoreOfftargets verdicts differ from the native exact scorer")
+    for name, g, w in zip(("mit", "cfd"), got, want):
+        if not np.allclose(g, w, rtol=SCORE_RTOL, atol=SCORE_ATOL):
+            fail(f"scoreOfftargets {name} scores outside the f32 tier "
+                 f"(max abs diff {np.abs(g - w).max():.3e})")
+    emit({"phase": "score_offtargets", "queries": SAMPLE, "wall_s": wall,
+          "max_abs_diff": max(float(np.abs(g - w).max())
+                              for g, w in zip(got, want)),
+          "rtol": SCORE_RTOL, "atol": SCORE_ATOL})
 
 
 def main():
@@ -590,27 +959,43 @@ def main():
 
     phase_build()
     from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+    from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 
     index, queries, files = bench_dataset()
     scorer = CompactIsslScorer(index, max_dist=4, device=dev)
-    max_err = phase_kernel_vs_plain(dev, scorer, queries)
-    timing = phase_scorer(dev, scorer, queries, card)
-    phase_profile(dev, scorer, queries)
+    compact_err = phase_kernel_vs_plain(dev, scorer, queries)
+    compact = phase_scorer(dev, scorer, queries, card)
+    phase_profile(dev, lambda: scorer.score_sums(queries), "compact.")
     del scorer
     torch.cuda.empty_cache()
+
+    page = queries[:MXU_PAGE]
+    eng = MxuIsslScorer(index, max_dist=4, method="and", threshold=75.0,
+                        device=dev)
+    mxu_err = phase_mxu_kernel_vs_plain(dev, eng, page)
+    mxu = phase_mxu_page(dev, eng, page, card)
+    phase_profile(dev, lambda: eng._run_pages(page), "mxu.")
+    del eng
+    torch.cuda.empty_cache()
+    phase_mxu_small(dev)
+    phase_flat(dev, index, queries)
     phase_hybrid_methods(dev)
-    launches = phase_pipeline(dev, files)
+    compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
+    mxu["launches"], rows_exact = phase_pipeline(dev, files, "exact")
+    same_verdicts(rows_auto, rows_exact)
+    phase_score_offtargets(dev, index, queries, files)
     log(f"all phases passed in {time.time() - t0:.1f} s")
 
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "compact_finder", "route": "cuda",
-        "source": "crackling_tpu_torch/csrc/compact_finder.cu",
-        "replaces": "crackling_tpu/ops/issl_compact.py:247",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]})
+    emit({"kernels": [
+        {"name": "compact_finder", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/compact_finder.cu",
+         "replaces": "crackling_tpu/ops/issl_compact.py:247",
+         "max_abs_err": compact_err, "library_ms": None, **compact},
+        {"name": "mxu_finder", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/mxu_finder.cu",
+         "replaces": "crackling_tpu/ops/issl_mxu.py:67",
+         "max_abs_err": mxu_err, "library_ms": None, **mxu}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -3,6 +3,8 @@
 Every entry point takes a ``device``. ``None`` means the GPU: the port
 runs on ``cuda`` unless the caller asks for the CPU, and a caller that did
 not ask for the CPU and has no GPU gets an error, never a silent CPU run.
+Engines that size their device buffers check them against
+:func:`free_bytes` before they allocate.
 """
 
 from __future__ import annotations
@@ -23,6 +25,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (or set "
             "CRACKLING_PLATFORM=cpu for the CLIs) to run on the CPU")
     return dev
+
+
+def free_bytes(device: torch.device) -> int:
+    """Memory an engine may still take on ``device``: the card's free
+    memory plus what PyTorch's allocator holds unused, or the host's
+    available memory for the CPU."""
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return int(free + torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 def cli_device() -> str:

@@ -33,29 +33,17 @@ Replaces crackling_tpu/ops/issl_compact.py::_finder_kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 
 from .bits import SIG40, collapse_pairs, earlier_slice_clean, popcount
+from .kernel_build import KernelLibrary
 
 RANK_EMPTY = 1 << 23          # min-rank of an empty cell (ranks < 2^22)
 KERNEL_TILE = 512             # entries per shared-memory tile (.cu kTile)
 # plain version: (slot, entry) pairs evaluated per block, bounding memory
 PLAIN_PAIR_BLOCK = 1 << 23
-
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "compact_finder.cu"
-_BUILD = _PKG / "_build"
-_lock = threading.Lock()
-_lib = None
-
 
 class FinderOut(NamedTuple):
     cnt: torch.Tensor     # (S, B, C, qb) int32 hit counts
@@ -77,51 +65,18 @@ def superchunk_cells(nchmax: int, superchunk: int) -> int:
 # -- the kernel -----------------------------------------------------------
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the compact finder kernel is built "
-                       f"from {_SRC} at first use")
+def _bind(lib):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.crackling_compact_finder.restype = i
+    lib.crackling_compact_finder.argtypes = [
+        p, ll, p, p, p, p,    # entries, epad, boff, blen, qsig, qsp
+        i, i, i, i,           # S, B, qb, n
+        i, i, i, i, i,        # chunk, nchmax, superchunk, nsc, max_dist
+        p, p, p, p,           # cnt, rsum, rmin, rmax
+        i, p]                 # device, stream
 
 
-def build_kernel_library() -> Path:
-    """Compile ``csrc/compact_finder.cu`` for sm_90a into ``_build/``
-    (once per source version) and return the library's path. The
-    compiler's ``-Xptxas -v`` report lands beside it as ``.log``."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    out = _BUILD / f"libcompact_finder_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load_kernel():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_kernel_library()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.crackling_compact_finder.restype = i
-            lib.crackling_compact_finder.argtypes = [
-                p, ll, p, p, p, p,    # entries, epad, boff, blen, qsig, qsp
-                i, i, i, i,           # S, B, qb, n
-                i, i, i, i, i,        # chunk, nchmax, superchunk, nsc, max_dist
-                p, p, p, p,           # cnt, rsum, rmin, rmax
-                i, p]                 # device, stream
-            _lib = lib
-    return _lib
+KERNEL = KernelLibrary("compact_finder.cu", _bind)
 
 
 def _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist):
@@ -182,7 +137,7 @@ def compact_finder(entries: torch.Tensor, boff: torch.Tensor,
                                     max_dist=max_dist)
     if entries.device.type != "cuda":
         raise ValueError(f"no compact finder for device {entries.device}")
-    lib = _load_kernel()
+    lib = KERNEL.get()
     S, B, qb = qsp.shape
     nsc = superchunk_cells(nchmax, superchunk)
     out = _alloc(S, B, qb, nchmax, nsc, entries.device)
@@ -206,22 +161,28 @@ compact_finder.launches = 0
 # -- the plain version ----------------------------------------------------
 
 
-def compact_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
-                         blen: torch.Tensor, q_sig: torch.Tensor,
-                         qsp: torch.Tensor, *, chunk: int, nchmax: int,
-                         superchunk: int, max_dist: int) -> FinderOut:
-    """The same function in plain PyTorch: enumerate the (query slot,
-    bucket entry) pairs of occupied slots in blocks of at most
-    ``PLAIN_PAIR_BLOCK``, test the hit predicate, and scatter hits into
-    the chunk cells; superchunk and bucket cells reduce the chunk cells.
-    Work is proportional to the pairs the page really has."""
-    compact_finder_plain.calls += 1
+class PairBlock(NamedTuple):
+    """One block of (query slot, bucket entry) pairs, one row per pair."""
+    slot: torch.Tensor    # flat slot (s*B + b)*qb + j
+    sl: torch.Tensor      # slice s
+    r: torch.Tensor       # the entry's in-bucket rank
+    e: torch.Tensor       # the entry's packed signature (int64)
+    q: torch.Tensor       # the slot's query signature (int64)
+
+
+def slot_entry_pairs(entries: torch.Tensor, boff: torch.Tensor,
+                     blen: torch.Tensor, q_sig: torch.Tensor,
+                     qsp: torch.Tensor,
+                     block: int = PLAIN_PAIR_BLOCK) -> Iterator[PairBlock]:
+    """The (slot, entry) pairs of every occupied slot (a query id in
+    ``[0, n)``) with every entry of its bucket, in blocks of whole slots
+    holding at most ``block`` pairs (a slot longer than that is its own
+    block): the enumeration both finders' plain versions test. Work
+    follows the pairs the page really has."""
     dev = entries.device
     S, B, qb = qsp.shape
     n = q_sig.numel()
     epad = entries.shape[1]
-    nsc = superchunk_cells(nchmax, superchunk)
-
     qid = qsp.reshape(-1).long()
     slot = torch.arange(S * B * qb, device=dev)
     sl = slot // (B * qb)
@@ -231,40 +192,52 @@ def compact_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
     slot, sl, sb, lens = slot[live], sl[live], sb[live], lens[live]
     q = q_sig[qid[live]]
     base = sl * epad + boff.reshape(-1)[sb]           # flat bucket start
-
-    cells = S * B * qb * nchmax
-    cnt = torch.zeros(cells, dtype=torch.int64, device=dev)
-    rsum = torch.zeros(cells, dtype=torch.int64, device=dev)
-    rmin = torch.full((cells,), RANK_EMPTY, dtype=torch.int64, device=dev)
-    rmax = torch.full((cells,), -1, dtype=torch.int64, device=dev)
     flat = entries.reshape(-1)
-
-    # slot blocks whose pair counts sum to <= PLAIN_PAIR_BLOCK (a single
-    # slot longer than that is its own block)
     ends = torch.cumsum(lens, 0).cpu()
     i0 = 0
     while i0 < slot.numel():
         start = int(ends[i0 - 1]) if i0 else 0
-        i1 = int(torch.searchsorted(ends, start + PLAIN_PAIR_BLOCK,
-                                    right=True))
+        i1 = int(torch.searchsorted(ends, start + block, right=True))
         i1 = max(i1, i0 + 1)
         blens = lens[i0:i1]
         rep = torch.repeat_interleave(
             torch.arange(i1 - i0, device=dev), blens)
         first = torch.cumsum(blens, 0) - blens
         r = torch.arange(rep.numel(), device=dev) - first[rep]
-        e = flat[base[i0:i1][rep] + r]
-        c40 = collapse_pairs((e ^ q[i0:i1][rep]) & SIG40)
+        yield PairBlock(slot[i0:i1][rep], sl[i0:i1][rep], r,
+                        flat[base[i0:i1][rep] + r], q[i0:i1][rep])
+        i0 = i1
+
+
+def compact_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
+                         blen: torch.Tensor, q_sig: torch.Tensor,
+                         qsp: torch.Tensor, *, chunk: int, nchmax: int,
+                         superchunk: int, max_dist: int) -> FinderOut:
+    """The same function in plain PyTorch: test the hit predicate on
+    every (slot, entry) pair (:func:`slot_entry_pairs`) and scatter hits
+    into the chunk cells; superchunk and bucket cells reduce the chunk
+    cells."""
+    compact_finder_plain.calls += 1
+    dev = entries.device
+    S, B, qb = qsp.shape
+    nsc = superchunk_cells(nchmax, superchunk)
+
+    cells = S * B * qb * nchmax
+    cnt = torch.zeros(cells, dtype=torch.int64, device=dev)
+    rsum = torch.zeros(cells, dtype=torch.int64, device=dev)
+    rmin = torch.full((cells,), RANK_EMPTY, dtype=torch.int64, device=dev)
+    rmax = torch.full((cells,), -1, dtype=torch.int64, device=dev)
+    for pb in slot_entry_pairs(entries, boff, blen, q_sig, qsp):
+        c40 = collapse_pairs((pb.e ^ pb.q) & SIG40)
         hit = ((popcount(c40) <= max_dist)
-               & ~earlier_slice_clean(c40, sl[i0:i1][rep]))
+               & ~earlier_slice_clean(c40, pb.sl))
         h = torch.nonzero(hit).flatten()
-        rh = r[h]
-        cell = slot[i0:i1][rep[h]] * nchmax + rh // chunk
+        rh = pb.r[h]
+        cell = pb.slot[h] * nchmax + rh // chunk
         cnt.index_add_(0, cell, torch.ones_like(rh))
         rsum.index_add_(0, cell, rh)
         rmin.scatter_reduce_(0, cell, rh, "amin")
         rmax.scatter_reduce_(0, cell, rh, "amax")
-        i0 = i1
 
     # (S*B*qb, nchmax) slot-major -> (S, B, nchmax, qb) cell-major
     def planes(x):

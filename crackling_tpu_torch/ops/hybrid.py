@@ -3,18 +3,21 @@
 The port of crackling_tpu/ops/issl_dense.py::HybridIsslScorer and
 ``_NativeExact``. A fast engine (the compact engine on the GPU) scores
 every query; the queries whose verdict its rounding could flip are
-scored again exactly on the host, in f64 and in the reference's scan
-order with its early exit.
+scored again exactly: in f64, in the reference's scan order and with its
+early exit.
 
-Re-score chain in this package: ``native/exact.cpp`` (the binary's
-per-query bucket walk, OpenMP across queries), and where no host
-toolchain exists, ``oracle.score_exact``. The on-device exact (MXU)
-engine joins the chain when it is ported (ROADMAP queue 1, item 5).
+Re-score chain, as in the JAX package (``issl_dense.py:537-578``): the
+bit-exact MXU engine (``ops/issl_mxu.py``) on the fast engine's device;
+where it does not fit (its rank bound or the device's free memory), the
+native host scanner ``native/exact.cpp`` (the binary's per-query bucket
+walk, OpenMP across queries); without a host toolchain, the flat exact
+engine (``ops/issl_flat.py``) in f64 on the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..index.build import IsslIndex
 
@@ -50,16 +53,6 @@ class _NativeExact:
 
         return native.exact_score_native(self.index, sigs, self.max_dist,
                                          self.threshold, self.method)
-
-
-class _OracleExact(_NativeExact):
-    """score() adapter over oracle.score_exact (pure numpy, slow)."""
-
-    def score(self, sigs):
-        from .oracle import score_exact
-
-        return score_exact(self.index, sigs, self.max_dist, self.threshold,
-                           self.method)
 
 
 class HybridIsslScorer:
@@ -112,13 +105,29 @@ class HybridIsslScorer:
     def _get_exact(self):
         if self._exact is None:
             from .. import native
+            from .issl_mxu import MxuIsslScorer
 
-            args = (self.index, self.max_dist, self.threshold, self.method)
-            probe = native.exact_score_native(
-                self.index, np.empty(0, np.uint64), self.max_dist,
-                self.threshold, self.method)
-            self._exact = (_NativeExact(*args) if probe is not None
-                           else _OracleExact(*args))
+            try:
+                self._exact = MxuIsslScorer(
+                    self.index, max_dist=self.max_dist, method=self.method,
+                    threshold=self.threshold, device=self.dense.device)
+            except ValueError:
+                # a bucket past the MXU engine's rank bound, or its index
+                # and page buffers do not fit beside the fast engine's:
+                # re-score on the host in true f64
+                args = (self.index, self.max_dist, self.threshold,
+                        self.method)
+                if native.exact_score_native(
+                        self.index, np.empty(0, np.uint64), self.max_dist,
+                        self.threshold, self.method) is not None:
+                    self._exact = _NativeExact(*args)
+                else:
+                    from .issl_flat import IsslScorer
+
+                    self._exact = IsslScorer(
+                        self.index, max_dist=self.max_dist,
+                        method=self.method, threshold=self.threshold,
+                        dtype=torch.float64, device="cpu")
         return self._exact
 
     def _near_threshold(self, mit, cfd):

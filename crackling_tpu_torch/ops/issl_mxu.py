@@ -1,0 +1,561 @@
+"""The bit-exact ISSL engine: device neighbour finder + host f64 replay.
+
+The PyTorch port of crackling_tpu/ops/issl_mxu.py (``engine = exact`` /
+``mxu``, and the hybrid's first exact re-scorer). Its scores equal
+``isslScoreOfftargets``' for every method, ``avg`` included. One query
+page runs:
+
+1. **Slot plan** (:meth:`MxuIsslScorer._plan`, host numpy): each
+   (slice, bucket) gets ``qb`` query slots; spare slots hold the padding
+   id ``query_page``.
+2. **Neighbour finder** (:func:`mxu_finder`, the hand-written Hopper
+   kernel on CUDA): per (512-entry segment, slot) the count and rank sum
+   of the bucket's entries at distance 1..max_dist.
+3. **Hit decode** (:func:`decode_neighbours`, torch ops on the device):
+   single-neighbour slots resolve from their slot totals, multi-neighbour
+   slots through their segment cells, and segments with several
+   neighbours are rescanned; the result is a compact (query, slice, site
+   id) hit table. Every compaction is capped, so the page never waits on
+   the host; a population above its cap splits the page.
+4. **Replay** (:meth:`MxuIsslScorer._replay_page`, host numpy in f64):
+   the hits of each query in the reference's scan order (slice, then site
+   id), deduplicated by first occurrence, summed with the reference's
+   early exit. Queries with no neighbour score from their own site alone,
+   found by a binary search over the lexicographically sorted sites.
+
+Discovery parity: the reference finds an off-target only through a slice
+that matches exactly (isslScoreOfftargets.cpp:330-344), and the finder
+scans exactly those (slice value == query slice value) buckets.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..codec import popcount64
+from ..device import free_bytes, resolve_device
+from ..index.build import IsslIndex, _lofirst_to_lex
+from .bits import collapse_pairs, popcount
+from .issl_compact import ALIGN, RANK_BOUND, compact_indices
+from .mxu_finder import NeighbourPlanes, mxu_finder, signature_mask
+
+SLOT_ALIGN = 64       # slot count granule (the kernel's block of slots)
+# multi-neighbour segments rescanned per block, bounding the rescan's
+# temporaries to O(RESCAN_BLOCK x segw) however large its cap is
+RESCAN_BLOCK = 4096
+
+
+def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
+                      planes: NeighbourPlanes, order: torch.Tensor,
+                      uoff: torch.Tensor, entries: torch.Tensor,
+                      boff: torch.Tensor, blen: torch.Tensor, *, segw: int,
+                      max_dist: int, seq_length: int, caps: tuple,
+                      trim: bool):
+    """One page's finder planes -> its compact hit table, on the device
+    (the JAX engine's ``epilogue``).
+
+    ``order`` (S, N) int32 per-slice site ids in bucket order and
+    ``uoff`` (S, B+1) int64 their (unaligned) CSR offsets turn in-bucket
+    ranks into site ids; ``entries``/``boff``/``blen`` are the finder's
+    aligned packed lists, which the rescan reads. Returns (header, hits):
+    header (6,) int64 populations (hits, single-neighbour slots,
+    multi-neighbour slots, their nonzero segments, multi-neighbour
+    segments, rescan hits), and hits (3, <= hitcap) int64 rows (query,
+    slice, site id), valid in their first ``header[0]`` columns unless a
+    population exceeds its cap."""
+    dev = q_sig.device
+    n = q_sig.numel()
+    S, B, nseg, qb = planes.cnt.shape
+    cap1, capm, capm2, capr, capr2, hitcap = caps
+    N = order.shape[1]
+    epad = entries.shape[1]
+    cnt_f = planes.cnt.reshape(-1)
+    pos_f = planes.rsum.reshape(-1)
+    qsp_f = qsp.reshape(-1).long()
+    order_f = order.reshape(-1)
+    uoff_f = uoff.reshape(-1)
+    boff_f = boff.reshape(-1)
+    blen_f = blen.reshape(-1).long()
+    ent_f = entries.reshape(-1)
+    mask = signature_mask(seq_length)
+
+    def split_slot(slot):
+        """Flat slot (s*B + b)*qb + j -> (s, b)."""
+        sb = slot // qb
+        return sb // B, sb % B
+
+    def order_at(s, b, k):
+        # ranks index the UNALIGNED CSR lists (the rescan, below, reads
+        # the aligned ones)
+        return order_f[s * N + uoff_f[s * (B + 1) + b] + k].long()
+
+    # 1) single-neighbour slots: the rank sum IS the in-bucket rank
+    with record_function("mxu.decode.single"):
+        slot_cnt = planes.cnt.sum(2, dtype=torch.int64).reshape(-1)
+        slot_pos = planes.rsum.sum(2).reshape(-1)
+        one = slot_cnt == 1
+        n1 = one.sum()
+        sidx = compact_indices(one, cap1, trim)
+        v1 = sidx >= 0
+        si = sidx.clamp(min=0)
+        s1, b1 = split_slot(si)
+        hid1 = order_at(s1, b1, torch.where(v1, slot_pos[si], 0))
+        hq1 = qsp_f[si]
+
+    # 2) multi-neighbour slots -> their nonzero segment cells; a
+    # single-neighbour segment pins its rank
+    with record_function("mxu.decode.multi"):
+        multi = slot_cnt >= 2
+        nm = multi.sum()
+        midx = compact_indices(multi, capm, trim)
+        mi = midx.clamp(min=0)
+        vm = (midx >= 0)[:, None]
+        g = torch.arange(nseg, device=dev)
+        cidx = ((mi // qb)[:, None] * nseg + g[None, :]) * qb \
+            + (mi % qb)[:, None]
+        mc = torch.where(vm, cnt_f[cidx], 0)              # (capm, nseg)
+        mp = torch.where(vm, pos_f[cidx], 0)
+        nc = (mc > 0).sum()
+        mz = compact_indices((mc > 0).reshape(-1), capm2, trim)
+        vz = mz >= 0
+        mzc = mz.clamp(min=0)
+        msg = mzc % nseg
+        mslot = mi[mzc // nseg]
+        mcnt = mc.reshape(-1)[mzc]
+        mpos = mp.reshape(-1)[mzc]
+        sM, bM = split_slot(mslot)
+        hqM = qsp_f[mslot]
+        c1 = vz & (mcnt == 1)
+        hidM = order_at(sM, bM, torch.where(c1, mpos, 0))
+
+    # 3) multi-neighbour segments: rescan their <= segw entries, in blocks
+    # of RESCAN_BLOCK segments
+    with record_function("mxu.decode.rescan"):
+        c2 = vz & (mcnt >= 2)
+        n2c = c2.sum()
+        ridx = compact_indices(c2, capr, trim)
+        ri_all = ridx.clamp(min=0)
+        cols = torch.arange(segw, device=dev)
+        rhit = torch.zeros((ridx.numel(), segw), dtype=torch.bool,
+                           device=dev)
+        for k in range(0, ridx.numel(), RESCAN_BLOCK):
+            ri = ri_all[k:k + RESCAN_BLOCK]
+            rs, rb, rseg = sM[ri], bM[ri], msg[ri]
+            rq = qsp_f[mslot[ri]].clamp(max=n - 1)
+            start = rs * epad + boff_f[rs * B + rb] + rseg * segw
+            gpos = (start[:, None] + cols).clamp(max=ent_f.numel() - 1)
+            d = popcount(collapse_pairs(
+                (ent_f[gpos] ^ q_sig[rq][:, None]) & mask))
+            inseg = cols < (blen_f[rs * B + rb] - rseg * segw)[:, None]
+            rhit[k:k + RESCAN_BLOCK] = ((d >= 1) & (d <= max_dist) & inseg
+                                        & (ridx[k:k + RESCAN_BLOCK]
+                                           >= 0)[:, None])
+        nrh = rhit.sum()
+        rz = compact_indices(rhit.reshape(-1), capr2, trim)
+        vrz = rz >= 0
+        rzc = rz.clamp(min=0)
+        rr = ri_all[rzc // segw]
+        hsR = sM[rr]
+        hidR = order_at(hsR, bM[rr],
+                        torch.where(vrz, msg[rr] * segw + rzc % segw, 0))
+        hqR = qsp_f[mslot[rr]]
+
+    # assemble + final compaction
+    val_all = torch.cat([v1, c1, vrz])
+    nh = val_all.sum()
+    hz = compact_indices(val_all, hitcap, trim).clamp(min=0)
+    hits = torch.stack([torch.cat([hq1, hqM, hqR]),
+                        torch.cat([s1, sM, hsR]),
+                        torch.cat([hid1, hidM, hidR])])[:, hz]
+    header = torch.stack([nh, n1, nm, nc, n2c, nrh])
+    return header, hits
+
+
+class MxuIsslScorer:
+    """Bit-exact ISSL scorer: device neighbour finder + host f64 replay.
+
+    ``score`` reproduces the reference binary's output exactly (f64, scan
+    order, early exit) for every method."""
+
+    def __init__(self, index: IsslIndex, max_dist: int | None = None,
+                 method: str = "and", threshold: float = 75.0,
+                 query_page: int = 32768, chunk: int = 4096,
+                 nz_cap: int = 1 << 18, device=None):
+        self.device = resolve_device(device)
+        if index.seq_length > 20:
+            raise ValueError("the neighbour finder supports seq_length <= 20")
+        if chunk % ALIGN:
+            raise ValueError(f"chunk must be a multiple of {ALIGN}")
+        self.index = index
+        self.max_dist = index.max_dist if max_dist is None else int(max_dist)
+        self.method = method
+        self.threshold = float(threshold)
+        self.query_page = int(query_page)
+        self.chunk = int(chunk)
+        # static compaction capacities (an overflow splits the page in
+        # half): single-neighbour slots, multi-neighbour slots, their
+        # nonzero segment cells, multi-neighbour segments, rescan hits,
+        # and the final hit table
+        self.cap_single = int(nz_cap)
+        self.cap_mslot = max(1024, int(nz_cap) // 8)
+        self.cap_mcell = max(2048, int(nz_cap) // 4)
+        self.cap_rescan = max(1024, int(nz_cap) // 16)
+        self.cap_rhit = max(2048, int(nz_cap) // 8)
+        self.hit_cap = 2 * int(nz_cap)
+        self.S = index.slice_count
+        self.B = index.bucket_count
+
+        lens = np.diff(index.bucket_offsets, axis=1)
+        maxblen = int(lens.max()) if lens.size else 0
+        # the JAX engine decodes ranks from f32 sums, exact below 2^22;
+        # this port's sums are int64 but keeps the same bound (lifting it
+        # is ROADMAP queue 1, item 2(d))
+        if maxblen >= RANK_BOUND:
+            raise ValueError(
+                f"bucket with {maxblen:,} entries exceeds the MXU "
+                "engine's 2^22 rank-exactness bound; use IsslScorer "
+                "(ops/issl_flat.py) for this index")
+        self.segw = self.chunk // 8
+        self.nseg = max(8, -(-maxblen // self.chunk) * 8)
+
+        # memory BEFORE any device work: the resident index and one page's
+        # planes and decode buffers must fit beside whatever the device
+        # already holds (the hybrid's fast engine); else the same
+        # ValueError as the JAX engine's plane budget, so the hybrid and
+        # the pipeline fall back to another exact engine
+        alens = -(-lens // ALIGN) * ALIGN
+        epad = int(alens.sum(axis=1).max()) + self.chunk
+        epad = -(-epad // ALIGN) * ALIGN
+        resident = (self.S * epad * 8 + index.order.size * 4
+                    + self.S * (self.B + 1) * 8 + self.S * self.B * 12)
+        typical_qb = self._round_slots(2 * self.query_page // self.B)
+        free = free_bytes(self.device)
+        self._page_budget = free - resident
+        need = resident + self.page_bytes(typical_qb)
+        if need > free:
+            raise ValueError(
+                f"the MXU engine needs ~{need / 1e9:.2f} GB on "
+                f"{self.device} (index {resident / 1e9:.2f} GB + one "
+                f"{self.query_page:,}-query page) but "
+                f"{free / 1e9:.2f} GB are free at {index.num_sites:,} "
+                "sites; use IsslScorer (ops/issl_flat.py) for this index")
+
+        dev = self.device
+        arrs = index.device_arrays_aligned(align=ALIGN, tail=self.chunk)
+        lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
+        hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
+        self.entries = torch.as_tensor(
+            (lo | (hi << np.uint64(32))).view(np.int64), device=dev)
+        del lo, hi
+        self.bucket_offsets = torch.as_tensor(
+            arrs["bucket_offsets"][:, :self.B].astype(np.int64), device=dev)
+        self.bucket_lens = torch.as_tensor(arrs["bucket_lens"], device=dev)
+        self.order = torch.as_tensor(index.order, device=dev)
+        self.uoff = torch.as_tensor(
+            index.bucket_offsets.astype(np.int64), device=dev)
+
+        # lexicographic keys for the self-hit binary search: site ids are
+        # assigned in lex order (isslCreateIndex.cpp:184-207), so the
+        # id-ordered lex packing is ascending
+        self._site_lex = self._lex(index.site_sigs)
+        self._precalc = None
+        # per-page populations (header) of every decoded (sub)page
+        self.page_stats: list[tuple[int, ...]] = []
+
+    # -- sizes -------------------------------------------------------------
+
+    @staticmethod
+    def _round_slots(load: int) -> int:
+        return max(SLOT_ALIGN, -(-int(load) // SLOT_ALIGN) * SLOT_ALIGN)
+
+    def _caps(self) -> tuple:
+        return (self.cap_single, self.cap_mslot, self.cap_mcell,
+                self.cap_rescan, self.cap_rhit, self.hit_cap)
+
+    def page_bytes(self, qb: int) -> int:
+        """Device bytes one page with ``qb`` slots per bucket allocates:
+        the finder's planes (int32 counts + int64 rank sums), the decode's
+        slot totals, segment cells and rescan block, and the hit table."""
+        S, B = self.S, self.B
+        planes = S * B * self.nseg * qb * 12
+        slots = S * B * qb * (8 + 8 + 8 + 1) + qb * S * B * 4
+        cells = self.cap_mslot * self.nseg * (8 + 8 + 8 + 1)
+        rescan = (self.cap_rescan * self.segw
+                  + RESCAN_BLOCK * self.segw * 8 * 6)
+        hits = 4 * self.hit_cap * 8 * 3
+        return planes + slots + cells + rescan + hits
+
+    # -- per-page planning (host) ------------------------------------------
+
+    def _plan(self, sigs: np.ndarray):
+        """Sort queries into (slice, bucket) slots.
+
+        Returns (qsp, qb): qsp is (S, B, qb) int32 of query ids with
+        ``query_page`` as the padding id; qb is the slot count (a
+        multiple of 64, sized to the fullest bucket so no query is ever
+        dropped)."""
+        n = sigs.shape[0]
+        vals = self.index.slice_values(sigs).astype(np.int64)   # (S, n)
+        counts = np.zeros((self.S, self.B), dtype=np.int64)
+        for s in range(self.S):
+            counts[s] = np.bincount(vals[s], minlength=self.B)
+        qb = self._round_slots(counts.max() if counts.size else 1)
+        offs = np.zeros((self.S, self.B), dtype=np.int64)
+        np.cumsum(counts[:, :-1], axis=1, out=offs[:, 1:])
+        qsp = np.full((self.S, self.B * qb), self.query_page, dtype=np.int32)
+        ar = np.arange(n, dtype=np.int64)
+        for s in range(self.S):
+            order = np.argsort(vals[s], kind="stable")
+            sv = vals[s][order]
+            qsp[s][sv * qb + ar - offs[s][sv]] = order
+        return qsp.reshape(self.S, self.B, qb), qb
+
+    # -- the page program ----------------------------------------------------
+
+    def query_tensor(self, page: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(
+            np.ascontiguousarray(page, dtype=np.uint64).view(np.int64),
+            device=self.device)
+
+    def finder(self, q_sig: torch.Tensor, qsp: torch.Tensor):
+        """Step 2 of the page program (the kernel on CUDA)."""
+        return mxu_finder(self.entries, self.bucket_offsets,
+                          self.bucket_lens, q_sig, qsp, segw=self.segw,
+                          nseg=self.nseg, max_dist=self.max_dist,
+                          seq_length=self.index.seq_length)
+
+    def decode(self, q_sig: torch.Tensor, qsp: torch.Tensor,
+               planes: NeighbourPlanes):
+        """Step 3 of the page program."""
+        return decode_neighbours(
+            q_sig, qsp, planes, self.order, self.uoff, self.entries,
+            self.bucket_offsets, self.bucket_lens, segw=self.segw,
+            max_dist=self.max_dist, seq_length=self.index.seq_length,
+            caps=self._caps(), trim=self.device.type == "cpu")
+
+    def _run_pages(self, sigs: np.ndarray) -> list[tuple]:
+        """Finder + device decode over all pages of ``sigs``. Returns
+        per-(sub)page tuples ``(page, counts, hq, hs, hid)`` where
+        hq/hs/hid is the page's hit table (page-local query index, slice,
+        site id). A compaction overflow, or planes larger than the
+        device's room, splits a page and retries."""
+        out = []
+
+        def run_one(page):
+            n = page.shape[0]
+            with record_function("mxu.plan"):
+                qsp_np, qb = self._plan(page)
+            if n >= 2 and self.page_bytes(qb) > self._page_budget:
+                run_one(page[:n // 2])
+                run_one(page[n // 2:])
+                return
+            q_sig = self.query_tensor(page)
+            qsp = torch.as_tensor(qsp_np, device=self.device)
+            header, hits = self.decode(q_sig, qsp, self.finder(q_sig, qsp))
+            pops = tuple(int(x) for x in header.cpu())
+            self.page_stats.append(pops)
+            nh, n1, nm, nc, n2c, nrh = pops
+            if (n1 > self.cap_single or nm > self.cap_mslot
+                    or nc > self.cap_mcell or n2c > self.cap_rescan
+                    or nrh > self.cap_rhit or nh > self.hit_cap):
+                if n < 2:
+                    raise RuntimeError("hit compaction overflow on a single "
+                                       "query; raise the engine caps")
+                run_one(page[:n // 2])
+                run_one(page[n // 2:])
+                return
+            hq, hs, hid = hits[:, :nh].cpu().numpy()
+            counts = np.bincount(hq, minlength=n).astype(np.float64)
+            out.append((page, counts, hq, hs, hid))
+
+        for j in range(0, sigs.shape[0], self.query_page):
+            run_one(sigs[j:j + self.query_page])
+        return out
+
+    def neighbour_counts(self, query_sigs: np.ndarray) -> np.ndarray:
+        """Per-query count of (slice-discoverable, pre-dedup) sites at
+        distance 1..max_dist — the finder's raw output."""
+        sigs = np.asarray(query_sigs, dtype=np.uint64)
+        if not sigs.size:
+            return np.zeros(0, dtype=np.float64)
+        return np.concatenate([r[1] for r in self._run_pages(sigs)])
+
+    # -- hit decoding (host) -----------------------------------------------
+
+    def _lex(self, sigs: np.ndarray) -> np.ndarray:
+        from .. import native
+
+        lex = native.lex_convert_native(sigs, self.index.seq_length)
+        return (lex if lex is not None
+                else _lofirst_to_lex(sigs, self.index.seq_length))
+
+    def _self_lookup(self, sigs: np.ndarray):
+        """Binary search each query in the lex-sorted site list.
+        Returns (found, site_id, occurrences)."""
+        if self.index.num_sites == 0:
+            z = np.zeros(sigs.shape[0], dtype=np.int64)
+            return np.zeros(sigs.shape[0], dtype=bool), z, z
+        qlex = self._lex(sigs)
+        pos = np.searchsorted(self._site_lex, qlex)
+        pos = np.minimum(pos, self.index.num_sites - 1)
+        found = self._site_lex[pos] == qlex
+        occ = np.where(found, self.index.occurrences[pos].astype(np.int64), 0)
+        return found, pos.astype(np.int64), occ
+
+    # -- exact replay (host, f64, vectorized) ------------------------------
+
+    def _replay_page(self, page, hq, hs, hid, method, threshold,
+                     mit_out, cfd_out, qmap):
+        """Accumulate each query's hits in exact reference order
+        (isslScoreOfftargets.cpp:308-511): hits sorted by (slice, site id)
+        — within-bucket list order IS ascending id — deduped by first
+        occurrence, f64 sums with the score-visible early exit. The per-hit
+        arithmetic is vectorized; only the running-sum loop is sequential
+        (native/replay.cpp, or the Python loop below without a
+        toolchain). ``qmap`` maps page-local query index -> output row."""
+        from .. import native
+        from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
+                             cfd_pos_penalties, precalculated_mit_scores)
+
+        idx = self.index
+        calc_mit = method in ("mit", "and", "or", "avg")
+        calc_cfd = method in ("cfd", "and", "or", "avg")
+        maximum_sum = (10000.0 - threshold * 100.0) / threshold
+
+        o = np.lexsort((hid, hs, hq))
+        hq, hs, hid = hq[o], hs[o], hid[o]
+        n_hits = hq.shape[0]
+        if n_hits == 0:
+            return
+        # dedup: first occurrence of (query, site) in scan order
+        composite = hq.astype(np.uint64) * np.uint64(idx.num_sites + 1) \
+            + hid.astype(np.uint64)
+        _, first = np.unique(composite, return_index=True)
+        keep = np.zeros(n_hits, dtype=bool)
+        keep[first] = True
+
+        qsig = page[hq]
+        sig = idx.site_sigs[hid]
+        occ = idx.occurrences[hid].astype(np.float64)
+        x = qsig ^ sig
+        even = np.uint64(0xAAAAAAAAAAAAAAAA)
+        odd = np.uint64(0x5555555555555555)
+        mask40 = ((x & even) >> np.uint64(1)) | (x & odd)
+        dist = popcount64(mask40)
+
+        if calc_mit:
+            # precalc-map lookup via unique masks (<= 6195 distinct values
+            # at max_dist 4; avoids the 2^20-entry dense table)
+            if self._precalc is None:
+                self._precalc = precalculated_mit_scores(idx.seq_length,
+                                                         self.max_dist)
+            um, inv = np.unique(mask40, return_inverse=True)
+            uvals = np.array([self._precalc.get(int(m), 0.0) for m in um],
+                             dtype=np.float64)
+            mit_c = np.where(dist > 0, uvals[inv], 0.0) * occ
+        else:
+            mit_c = np.zeros(n_hits, dtype=np.float64)
+        if calc_cfd:
+            pos_pen = cfd_pos_penalties()
+            pam = float(cfd_pam_penalties()[CFD_PAM_NGG_INDEX])
+            # sequential in position order (vectorized across hits) so the
+            # f64 product is bit-identical to the reference's loop
+            c = np.full(n_hits, pam, dtype=np.float64)
+            for p in range(idx.seq_length):
+                sh = np.uint64(2 * p)
+                qb_ = ((qsig >> sh) & np.uint64(3)).astype(np.int64)
+                ob = ((sig >> sh) & np.uint64(3)).astype(np.int64)
+                pen = pos_pen[p, (qb_ << 2) | (ob ^ 3)]
+                c = c * np.where(qb_ != ob, pen, 1.0)
+            cfd_c = np.where(dist == 0, 1.0, c) * occ
+        else:
+            cfd_c = np.zeros(n_hits, dtype=np.float64)
+
+        bounds = np.flatnonzero(np.diff(hq)) + 1
+        starts = np.concatenate([[0], bounds, [n_hits]])
+        heads = hq[starts[:-1]]
+        acc = native.replay_accumulate_native(
+            starts, mit_c, cfd_c, keep, method, maximum_sum)
+        if acc is not None:
+            m_arr, cc_arr = acc
+            rows = qmap[heads]
+            mit_out[rows] = 10000.0 / (100.0 + m_arr)
+            cfd_out[rows] = 10000.0 / (100.0 + cc_arr)
+            return
+        mit_l = mit_c.tolist()
+        cfd_l = cfd_c.tolist()
+        keep_l = keep.tolist()
+        for g in range(heads.shape[0]):
+            m = 0.0
+            cc = 0.0
+            for i in range(int(starts[g]), int(starts[g + 1])):
+                if not keep_l[i]:
+                    continue
+                m += mit_l[i]
+                cc += cfd_l[i]
+                if method == "and":
+                    if m > maximum_sum and cc > maximum_sum:
+                        break
+                elif method == "or":
+                    if m > maximum_sum or cc > maximum_sum:
+                        break
+                elif method == "avg":
+                    if (m + cc) / 2.0 > maximum_sum:
+                        break
+                elif method == "mit":
+                    if m > maximum_sum:
+                        break
+                elif cc > maximum_sum:             # cfd
+                    break
+            row = qmap[int(heads[g])]
+            mit_out[row] = 10000.0 / (100.0 + m)
+            cfd_out[row] = 10000.0 / (100.0 + cc)
+
+    # -- public API ----------------------------------------------------------
+
+    def score(self, query_sigs: np.ndarray, method: str | None = None,
+              threshold: float | None = None):
+        """Reference-exact (mit, cfd) scores, already 10000/(100+sum)."""
+        method = self.method if method is None else method
+        threshold = self.threshold if threshold is None else float(threshold)
+        sigs = np.asarray(query_sigs, dtype=np.uint64)
+        n = sigs.shape[0]
+        calc_cfd = method in ("cfd", "and", "or", "avg")
+
+        mit = np.full(n, 100.0, dtype=np.float64)
+        cfd = np.full(n, 100.0, dtype=np.float64)
+        if n == 0:
+            return mit, cfd
+
+        off = 0
+        for (page, counts, hq, hs, hid) in self._run_pages(sigs):
+            pn = page.shape[0]
+            rows = np.arange(off, off + pn)
+            flagged = counts > 0
+            found, sid_self, occ_self = self._self_lookup(page)
+
+            # neighbour-free queries: the only possible hit is the query's
+            # own site — dist 0 gives MIT 0 and CFD occurrences
+            # (isslScoreOfftargets.cpp:393,407-408); no exit can truncate a
+            # single-hit scan, so this is the exact reference result
+            if calc_cfd:
+                clean = ~flagged
+                cfd[rows[clean]] = 10000.0 / (100.0 + occ_self[clean]
+                                              .astype(np.float64))
+
+            if flagged.any():
+                # self-hits of flagged queries: present in every slice's
+                # bucket; ordering needs only (slice, id), both known
+                fs = np.flatnonzero(flagged & found)
+                if fs.size:
+                    hq = np.concatenate([hq, np.repeat(fs, self.S)])
+                    hs = np.concatenate(
+                        [hs, np.tile(np.arange(self.S), fs.size)])
+                    hid = np.concatenate(
+                        [hid, np.repeat(sid_self[fs], self.S)])
+                self._replay_page(page, hq, hs, hid, method, threshold,
+                                  mit, cfd, qmap=rows)
+            off += pn
+        return mit, cfd

@@ -18,6 +18,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ..codec import sigs_to_strings
 from ..constants import (
@@ -79,13 +80,14 @@ class GuideTable:
 
 
 def select_auto_engine(index, device) -> str:
-    """Resolve ``engine = auto``: the hybrid compact engine (compact full
-    scan on the device + exact host re-score of near-threshold queries,
-    verdict-exact for every method) at the l=20 / w=8 operating point it
-    supports, on CUDA and on the CPU alike. Other operating points need
-    the general exact engine (``xla``), which is not ported yet."""
-    del device  # the same pick on every device this package runs on
-    if index.seq_length != 20 or index.slice_width != 8:
+    """Resolve ``engine = auto`` as the JAX package does (its TPU maps to
+    CUDA here, its CPU to the CPU): on CUDA at the l=20 / w=8 operating
+    point, the hybrid compact engine (compact full scan on the GPU + exact
+    re-score of near-threshold queries, verdict-exact for every method);
+    on the CPU and at every other operating point, the general exact
+    engine (``xla``, ``ops/issl_flat.py``)."""
+    if (torch.device(device).type != "cuda" or index.seq_length != 20
+            or index.slice_width != 8):
         return "xla"
     return "compact"
 
@@ -93,9 +95,6 @@ def select_auto_engine(index, device) -> str:
 # engines of the JAX package that this package does not have yet, and the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "exact": "queue 1, item 5 (the MXU engine)",
-    "mxu": "queue 1, item 5 (the MXU engine)",
-    "xla": "queue 1, item 6 (the exact general engine)",
     "dense": "queue 1, item 7 (the dense engine)",
     "sharded": "queue 1, item 8 (sharded scoring)",
     "pallas": "queue 1, item 10 (the scan-style engine)",
@@ -351,6 +350,8 @@ class Pipeline:
             index = build_index_from_sites_text(path, seq_length=20,
                                                 slice_width=8)
         method = cm["offtargetscore"]["method"].strip().lower()
+        md = int(cm["offtargetscore"]["max-distance"])
+        threshold = float(cm["offtargetscore"]["score-threshold"])
         engine = cm["tpu"].get("engine", "auto")
         if engine == "auto":
             engine = select_auto_engine(index, self.device)
@@ -362,29 +363,56 @@ class Pipeline:
             raise ValueError(
                 f"[tpu] engine = {engine} is not ported to the PyTorch "
                 f"package yet (ROADMAP {_NOT_PORTED[engine]})")
-        if engine != "compact":
-            raise ValueError(f"unknown [tpu] engine: {engine}")
-        # two-phase compact engine (finder kernel -> hit-moment
-        # compaction -> sparse f32 scoring) wrapped in the hybrid's
-        # exact near-threshold re-score for verdict exactness on all five
-        # methods. A bucket deeper than the moment decoder's 2^22 rank
-        # bound raises: the JAX package falls back to its dense engine
-        # there, which is not ported yet.
-        from ..ops.hybrid import HybridIsslScorer
-        from ..ops.issl_compact import CompactIsslScorer
+        if engine == "exact":
+            engine = "mxu"
+        if engine == "mxu":
+            # bit-exact %f score parity for every method: the neighbour
+            # finder on the device, the f64 replay on the host
+            from ..ops.issl_mxu import MxuIsslScorer
 
-        md = int(cm["offtargetscore"]["max-distance"])
-        try:
-            fast = CompactIsslScorer(index, max_dist=md, device=self.device)
-        except ValueError as e:
-            raise ValueError(
-                f"compact engine unavailable ({e}); its fallback, the "
-                f"dense engine, is not ported yet (ROADMAP "
-                f"{_NOT_PORTED['dense']})") from e
-        self._issl_scorer = HybridIsslScorer(
-            index, max_dist=md, method=method,
-            threshold=float(cm["offtargetscore"]["score-threshold"]),
-            dense=fast)
+            try:
+                self._issl_scorer = MxuIsslScorer(
+                    index, max_dist=md, method=method, threshold=threshold,
+                    device=self.device)
+                return self._issl_scorer
+            except ValueError as e:
+                # a bucket past the MXU engine's rank bound, or an index
+                # too large for the device's free memory: fall back to the
+                # order-exact general engine
+                printer(f"MXU engine unavailable ({e}); using the exact "
+                        "XLA engine")
+                engine = "xla"
+        if engine == "compact":
+            # two-phase compact engine (finder kernel -> hit-moment
+            # compaction -> sparse f32 scoring) wrapped in the hybrid's
+            # exact near-threshold re-score for verdict exactness on all
+            # five methods. A bucket deeper than the moment decoder's 2^22
+            # rank bound raises: the JAX package falls back to its dense
+            # engine there, which is not ported yet.
+            from ..ops.hybrid import HybridIsslScorer
+            from ..ops.issl_compact import CompactIsslScorer
+
+            try:
+                fast = CompactIsslScorer(index, max_dist=md,
+                                         device=self.device)
+            except ValueError as e:
+                raise ValueError(
+                    f"compact engine unavailable ({e}); its fallback, the "
+                    f"dense engine, is not ported yet (ROADMAP "
+                    f"{_NOT_PORTED['dense']})") from e
+            self._issl_scorer = HybridIsslScorer(
+                index, max_dist=md, method=method, threshold=threshold,
+                dense=fast)
+        elif engine == "xla":
+            # the order-exact general engine with the early-exit
+            # emulation: f64 on the CPU, TwoSum-compensated f32 on the GPU
+            from ..ops.issl_flat import IsslScorer, default_dtype
+
+            self._issl_scorer = IsslScorer(
+                index, max_dist=md, method=method, threshold=threshold,
+                dtype=default_dtype(self.device), device=self.device)
+        else:
+            raise ValueError(f"unknown [tpu] engine: {engine}")
         return self._issl_scorer
 
     def _get_genome_index(self):

@@ -105,11 +105,10 @@ def main_score_offtargets(argv=None):
     — same CLI and stdout format as isslScoreOfftargets
     (isslScoreOfftargets.cpp:94,514-527).
 
-    Scores with the hybrid compact engine: verdicts are the binary's for
-    every method, and queries near the threshold carry its exact
-    early-exit scores; the others carry the compact full-scan scores
-    (f32 tier). Exact scores for every query need the exact engine,
-    which is not ported yet (ROADMAP queue 1, item 6)."""
+    Scores with the general exact engine (``ops/issl_flat.py``) and its
+    early-exit emulation, as the JAX CLI does: every query carries the
+    binary's scores, early-exited ones included; f64 on the CPU,
+    TwoSum-compensated f32 on the GPU."""
     parser = argparse.ArgumentParser()
     parser.add_argument("issltable")
     parser.add_argument("queryfile")
@@ -121,7 +120,7 @@ def main_score_offtargets(argv=None):
 
     from ..codec import strings_to_sigs
     from ..index import load_native, read_reference_issl
-    from ..ops.hybrid import HybridIsslScorer
+    from ..ops.issl_flat import IsslScorer, default_dtype
 
     if args.issltable.endswith(".npz") or os.path.isdir(args.issltable):
         index = load_native(args.issltable)
@@ -130,9 +129,10 @@ def main_score_offtargets(argv=None):
     with open(args.queryfile) as fp:
         seqs = fp.read().split()
     sigs = strings_to_sigs(seqs, index.seq_length)
-    scorer = HybridIsslScorer(index, max_dist=args.max_dist,
-                              method=args.method, threshold=args.threshold,
-                              device=cli_device())
+    device = cli_device()
+    scorer = IsslScorer(index, max_dist=args.max_dist, method=args.method,
+                        threshold=args.threshold,
+                        dtype=default_dtype(device), device=device)
     mit, cfd = scorer.score(sigs)
     calc_mit = args.method in ("mit", "and", "or", "avg")
     calc_cfd = args.method in ("cfd", "and", "or", "avg")

@@ -1,4 +1,4 @@
-"""The PyTorch hybrid (compact + exact host re-score) against exact scoring.
+"""The PyTorch hybrid (compact + exact re-score) against exact scoring.
 
 For all five methods the hybrid's verdicts must equal the reference's
 (its early exit included), and every query it re-scores must carry the
@@ -13,16 +13,23 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from crackling_tpu.codec import sigs_to_strings
 from crackling_tpu.ops.oracle import score_exact
+from crackling_tpu_torch.ops import hybrid
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+from crackling_tpu_torch.ops.issl_flat import IsslScorer
+from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.pipeline.run import verdicts
 from test_native_exact import data  # noqa: F401  (shared fixture)
 from test_torch_compact import port_index
 
 METHODS = [("mit", 80.0), ("cfd", 80.0), ("and", 75.0), ("or", 75.0),
            ("avg", 90.0)]
+# (MIT, CFD) channels each method calculates
+CALC = {"mit": (True, False), "cfd": (False, True), "and": (True, True),
+        "or": (True, True), "avg": (True, True)}
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +38,12 @@ def world(data):  # noqa: F811
 
 
 # (re-scorer, band): the hybrid's own band re-scores only what rounding
-# could flip; an infinite band sends every query through the re-scorer
-CHAINS = [("native", None), ("native", np.inf), ("oracle", np.inf)]
+# could flip; an infinite band sends every query through the re-scorer.
+# The links of the re-score chain: the MXU engine (its first choice), the
+# native host scanner, and the flat exact engine in f64 on the CPU (the
+# no-toolchain link)
+CHAINS = [("mxu", None), ("mxu", np.inf), ("native", None),
+          ("native", np.inf), ("flat", np.inf)]
 
 
 @pytest.mark.parametrize("exact,band", CHAINS)
@@ -42,11 +53,15 @@ def test_hybrid_matches_exact_emulation(world, method, thr, exact, band):
     hy = HybridIsslScorer(port_index(index), max_dist=4, method=method,
                           threshold=thr, band=band, device="cpu",
                           query_page=64, chunk=1024)
-    if exact == "oracle":            # the chain's no-toolchain link
-        from crackling_tpu_torch.ops import hybrid
-
-        hy._exact = hybrid._OracleExact(hy.index, 4, thr, method)
+    if exact == "native":
+        hy._exact = hybrid._NativeExact(hy.index, 4, thr, method)
+    elif exact == "flat":
+        hy._exact = IsslScorer(hy.index, max_dist=4, method=method,
+                               threshold=thr, dtype=torch.float64,
+                               device="cpu")
     mit, cfd = hy.score(queries)
+    if exact == "mxu":               # the chain's first link on its own
+        assert isinstance(hy._get_exact(), MxuIsslScorer)
     ref_mit, ref_cfd = score_exact(index, queries, 4, thr, method)
     np.testing.assert_array_equal(verdicts(mit, cfd, thr, method),
                                   verdicts(ref_mit, ref_cfd, thr, method))
@@ -54,8 +69,12 @@ def test_hybrid_matches_exact_emulation(world, method, thr, exact, band):
     assert hy.last_rescored == int(near.sum())
     if band == np.inf:
         assert near.all()
-    for a, b in ((mit, ref_mit), (cfd, ref_cfd)):
-        assert ["%f" % x for x in a[near]] == ["%f" % x for x in b[near]]
+    # the channels the method calculates (the reference prints -1 for the
+    # other, isslScoreOfftargets.cpp:514-527; the flat engine scores both)
+    for on, a, b in zip(CALC[method], (mit, cfd), (ref_mit, ref_cfd)):
+        if on:
+            assert ["%f" % x for x in a[near]] == \
+                ["%f" % x for x in b[near]]
 
 
 @pytest.mark.parametrize("method,thr", METHODS)
@@ -81,9 +100,7 @@ def test_hybrid_matches_reference_binary(world, ref_bins, tmp_path, method,
     np.testing.assert_array_equal(verdicts(mit, cfd, thr, method),
                                   verdicts(ref_mit, ref_cfd, thr, method))
     near = hy._near_threshold(*hy.dense.score(queries))
-    calc = {"mit": (True, False), "cfd": (False, True)}.get(method,
-                                                           (True, True))
-    for on, a, b in zip(calc, (mit, cfd), (ref_mit, ref_cfd)):
+    for on, a, b in zip(CALC[method], (mit, cfd), (ref_mit, ref_cfd)):
         if on:
             assert ["%f" % x for x in a[near]] == \
                 ["%f" % x for x in b[near]]

@@ -30,6 +30,8 @@ leaked = sorted(k for k in sys.modules
 import numpy as np
 from crackling_tpu_torch.index import build_index
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+from crackling_tpu_torch.ops.issl_flat import IsslScorer
+from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
 from crackling_tpu_torch.pipeline.run import Pipeline
 
@@ -39,6 +41,8 @@ if not torch.cuda.is_available():
     class _CM:
         _parser = None
     for name, make in (("compact", lambda: CompactIsslScorer(index)),
+                       ("mxu", lambda: MxuIsslScorer(index)),
+                       ("flat", lambda: IsslScorer(index)),
                        ("hybrid", lambda: HybridIsslScorer(index)),
                        ("pipeline", lambda: Pipeline(_CM()))):
         try:
@@ -60,7 +64,9 @@ def _probe():
 def test_port_imports_no_jax_and_no_jax_package():
     res = _probe()
     # every module of the port was imported ...
-    assert "crackling_tpu_torch.ops.issl_compact" in res["mods"]
+    for mod in ("issl_compact", "compact_finder", "issl_mxu", "mxu_finder",
+                "issl_flat", "kernel_build"):
+        assert f"crackling_tpu_torch.ops.{mod}" in res["mods"]
     assert "crackling_tpu_torch.utils.cli" in res["mods"]
     # ... and none of them brought in JAX or the JAX package
     assert res["leaked"] == []
@@ -68,5 +74,6 @@ def test_port_imports_no_jax_and_no_jax_package():
     import torch
 
     if not torch.cuda.is_available():
-        assert res["raised"] == {"compact": True, "hybrid": True,
+        assert res["raised"] == {"compact": True, "mxu": True,
+                                 "flat": True, "hybrid": True,
                                  "pipeline": True}

@@ -1,0 +1,171 @@
+"""The PyTorch MXU engine against the JAX engine and the oracle (CPU).
+
+Inputs are ``tests/test_mxu.py``'s dataset (made with numpy from a
+seed), handed to both packages through ``convert.index_from_arrays``. On
+the CPU the port runs its plain neighbour finder; the JAX engine runs its
+Pallas kernel in interpret mode, as its own tests do. Tolerances: the
+finder's planes are integers and must equal the JAX kernel's f32 counts
+and rank sums exactly; scores must be ``np.array_equal`` (both engines
+replay the hits in f64 in the reference's order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import crackling_tpu_torch.ops.issl_mxu as port_mxu
+from crackling_tpu.index import build_index as jax_build_index
+from crackling_tpu.ops.issl_mxu import MxuIsslScorer as JaxMxu
+from crackling_tpu.ops.oracle import score_exact
+from crackling_tpu_torch.ops.issl_mxu import SLOT_ALIGN, MxuIsslScorer
+from crackling_tpu_torch.ops.mxu_finder import mxu_finder
+from test_mxu import data  # noqa: F401  (shared fixture)
+from test_torch_compact import port_index
+
+METHODS = ["and", "or", "mit", "cfd", "avg"]
+KW = dict(query_page=512, chunk=1024)
+
+
+@pytest.fixture(scope="module")
+def jax_engine(data):  # noqa: F811
+    index, _ = data
+    return JaxMxu(index, max_dist=4, interpret=True, **KW)
+
+
+def _jax_planes(eng, page):
+    """The JAX kernel's raw output for one page, split into its count and
+    position-sum planes (S, B, seg, qb), with the slot plan it ran on."""
+    n = page.shape[0]
+    qsp, qb = eng._plan(page)
+    prelude, kcall, _ = eng._get_run(qb)
+    lo = (page & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (page >> np.uint64(32)).astype(np.uint32)
+    packed = np.concatenate([lo, hi, qsp.reshape(-1).view(np.uint32)])
+    out = np.asarray(kcall(eng.bucket_offsets, eng.bucket_lens,
+                           prelude(packed, n), eng.planes))
+    S, B, two_seg, _ = out.shape
+    four = out.reshape(S, B, two_seg // 16, 2, 8, qb)
+    seg = two_seg // 2
+    return (qsp, four[:, :, :, 0].reshape(S, B, seg, qb),
+            four[:, :, :, 1].reshape(S, B, seg, qb))
+
+
+def _sub_l(index, queries, seq_length):
+    """The same data cut to ``seq_length``-mers (w = 8)."""
+    mask = np.uint64((1 << (2 * seq_length)) - 1)
+    sub = jax_build_index(index.site_sigs & mask, seq_length=seq_length,
+                          slice_width=8)
+    return sub, queries & mask
+
+
+@pytest.mark.parametrize("seq_length", [20, 16])
+def test_plain_finder_equals_jax_kernel(data, seq_length):  # noqa: F811
+    index, queries = data
+    if seq_length != 20:
+        index, queries = _sub_l(index, queries, seq_length)
+    jax_eng = JaxMxu(index, max_dist=4, interpret=True, **KW)
+    page = queries[:300]
+    qsp, cnt, pos = _jax_planes(jax_eng, page)
+    eng = MxuIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
+    assert eng.nseg == cnt.shape[2]
+    planes = mxu_finder(
+        eng.entries, eng.bucket_offsets, eng.bucket_lens,
+        eng.query_tensor(page), torch.as_tensor(qsp), segw=eng.segw,
+        nseg=eng.nseg, max_dist=4, seq_length=seq_length)
+    np.testing.assert_array_equal(planes.cnt.numpy(), cnt.astype(np.int64))
+    np.testing.assert_array_equal(planes.rsum.numpy(), pos.astype(np.int64))
+    assert planes.cnt.sum() > 0
+
+
+def test_neighbour_counts_equal_jax(data, jax_engine):  # noqa: F811
+    index, queries = data
+    eng = MxuIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
+    np.testing.assert_array_equal(eng.neighbour_counts(queries),
+                                  jax_engine.neighbour_counts(queries))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_scores_equal_jax_and_oracle(data, jax_engine, method):  # noqa: F811
+    index, queries = data
+    eng = MxuIsslScorer(port_index(index), max_dist=4, method=method,
+                        threshold=75.0, device="cpu", **KW)
+    got = eng.score(queries)
+    for want in (jax_engine.score(queries, method=method, threshold=75.0),
+                 score_exact(index, queries, 4, 75.0, method)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+
+
+CASES = {
+    # a smaller distance bound
+    "max_dist=2": dict(max_dist=2, query_page=512),
+    # three pages of 64
+    "multi-page": dict(max_dist=4, query_page=64),
+    # caps far below the page's populations: the page splits and retries
+    "cap-overflow": dict(max_dist=4, query_page=512, nz_cap=64),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_scores_equal_oracle(data, case):  # noqa: F811
+    index, queries = data
+    kw = CASES[case]
+    queries = queries[:150]
+    eng = MxuIsslScorer(port_index(index), method="and", threshold=75.0,
+                        chunk=1024, device="cpu", **kw)
+    mit, cfd = eng.score(queries)
+    ref_mit, ref_cfd = score_exact(index, queries, kw["max_dist"], 75.0,
+                                   "and")
+    assert np.array_equal(mit, ref_mit)
+    assert np.array_equal(cfd, ref_cfd)
+    if case == "cap-overflow":
+        assert len(eng.page_stats) > 1
+        assert any(p[1] > eng.cap_single for p in eng.page_stats)
+
+
+def test_page_larger_than_device_room_splits(data):  # noqa: F811
+    index, queries = data
+    eng = MxuIsslScorer(port_index(index), method="avg", threshold=75.0,
+                        device="cpu", **KW)
+    # no page fits: each halves down to one query, which runs regardless
+    eng._page_budget = eng.page_bytes(SLOT_ALIGN) - 1
+    queries = queries[190:202]
+    mit, cfd = eng.score(queries)
+    ref_mit, ref_cfd = score_exact(index, queries, 4, 75.0, "avg")
+    assert np.array_equal(mit, ref_mit) and np.array_equal(cfd, ref_cfd)
+    assert len(eng.page_stats) == queries.shape[0]
+
+
+def test_rank_bound_guard_raises():
+    from crackling_tpu_torch.index.build import IsslIndex
+
+    n = 1 << 22                      # one slice-0 bucket of 2^22 entries
+    sigs = (np.arange(n, dtype=np.uint64) << np.uint64(8)) | np.uint64(0x55)
+    index = IsslIndex(seq_length=20, slice_width=8, seq_count=n,
+                      site_sigs=sigs, occurrences=np.ones(n, np.uint32))
+    with pytest.raises(ValueError, match="2\\^22"):
+        MxuIsslScorer(index, max_dist=4, device="cpu")
+
+
+def test_memory_check_raises(data, monkeypatch):  # noqa: F811
+    index, _ = data
+    monkeypatch.setattr(port_mxu, "free_bytes", lambda device: 1 << 20)
+    with pytest.raises(ValueError, match="GB are free"):
+        MxuIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
+
+
+def test_finder_off_the_cpu_never_runs_the_plain_version():
+    """Off the CPU the wrapper launches its kernel or raises: a tensor on
+    another device (here ``meta``) never reaches the plain version."""
+    from crackling_tpu_torch.ops.mxu_finder import mxu_finder_plain
+
+    def t(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    calls = mxu_finder_plain.calls
+    with pytest.raises(ValueError, match="no neighbour finder"):
+        mxu_finder(t((1, 8), torch.int64), t((1, 1), torch.int64),
+                   t((1, 1), torch.int32), t((2,), torch.int64),
+                   t((1, 1, SLOT_ALIGN), torch.int32), segw=4, nseg=2,
+                   max_dist=1, seq_length=20)
+    assert mxu_finder_plain.calls == calls

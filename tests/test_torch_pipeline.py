@@ -1,12 +1,22 @@
 """The PyTorch package's ``Crackling`` against the JAX package's, on the CPU.
 
-Both pipelines run ``tests/test_pipeline.py``'s mini-world config. The
-JAX CPU path scores off-targets with its f64 exact engine; the port runs
-its compact engine (plain finder on the CPU) plus the hybrid's exact
-re-score of near-threshold queries, through its CLI entry point with
-``CRACKLING_PLATFORM=cpu``. Every CSV column must be identical except the
-two off-target scores, which agree within 1e-3 (f32 full scan vs f64),
-and the verdicts derived from them, which must be identical.
+Both pipelines run ``tests/test_pipeline.py``'s mini-world config; the
+JAX CPU path scores off-targets with its f64 exact engine. The port runs
+through its CLI entry point with ``CRACKLING_PLATFORM=cpu``, once per
+``[tpu] engine``:
+
+* ``auto`` picks the general exact engine on the CPU, as the JAX package
+  does, in f64: the whole CSV, both score columns included, must be the
+  JAX package's. (Both engines sum in the same order, so the printed
+  ``%f`` scores are identical, not merely close.)
+* ``exact`` is the MXU engine (plain neighbour finder on the CPU, f64
+  host replay): every column but the two scores identical, verdicts
+  included; scores within 1e-9 (it sums each query's hits in the
+  reference's order, the flat engine per round, so the last f64 bits may
+  differ before ``%f`` rounds them).
+* ``compact`` is the hybrid compact engine: every column but the two
+  scores identical, verdicts included; scores within 1e-3 (f32 full scan
+  vs f64).
 """
 
 import csv
@@ -15,16 +25,21 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from test_pipeline import mini_world  # noqa: F401  (shared fixture)
 
 SCORE_COLS = ("mitOfftargetscore", "cfdOfftargetscore")
+ENGINES = ["auto", "exact", "compact"]
+SCORE_TOL = {"auto": 0.0, "exact": 1e-9, "compact": 1e-3}
 
 
-def _config(mini_world, outdir):  # noqa: F811
+def _config(mini_world, outdir, engine=None):  # noqa: F811
     outdir.mkdir()
     text = mini_world["config"].read_text().replace(
         str(mini_world["outdir"]), str(outdir))
+    if engine is not None:
+        text += f"\n[tpu]\nengine = {engine}\n"
     cfg = outdir.parent / f"{outdir.name}.ini"
     cfg.write_text(text)
     return cfg
@@ -36,48 +51,91 @@ def _rows(path):
 
 
 @pytest.fixture(scope="module")
-def both_runs(mini_world, tmp_path_factory):  # noqa: F811
+def jax_rows(mini_world, tmp_path_factory):  # noqa: F811
     from crackling_tpu.pipeline.config import ConfigManager
     from crackling_tpu.pipeline.run import Crackling
 
-    td = tmp_path_factory.mktemp("torch-vs-jax")
-    cfg_jax = _config(mini_world, td / "jax")
-    cm = ConfigManager(str(cfg_jax), lambda m: None)
+    td = tmp_path_factory.mktemp("jax")
+    cm = ConfigManager(str(_config(mini_world, td / "out")), lambda m: None)
     assert cm.isConfigured()
     Crackling(cm)
+    return _rows(td / "out" / "mini-guides.txt")
 
-    cfg_torch = _config(mini_world, td / "torch")
+
+@pytest.fixture(scope="module", params=ENGINES)
+def torch_run(request, mini_world, tmp_path_factory):  # noqa: F811
+    engine = request.param
+    td = tmp_path_factory.mktemp(f"torch-{engine}")
+    cfg = _config(mini_world, td / "out", engine)
     env = dict(os.environ, CRACKLING_PLATFORM="cpu")
     res = subprocess.run(
         [sys.executable, "-m", "crackling_tpu_torch.utils.run_cli",
-         "Crackling", "-c", str(cfg_torch)],
+         "Crackling", "-c", str(cfg)],
         capture_output=True, text=True, env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
-    return (_rows(td / "jax" / "mini-guides.txt"),
-            _rows(td / "torch" / "mini-guides.txt"))
+    return engine, _rows(td / "out" / "mini-guides.txt")
 
 
-def test_csv_identical_except_scores(both_runs):
-    rows_jax, rows_torch = both_runs
-    assert rows_torch[0] == rows_jax[0]
-    assert len(rows_torch) == len(rows_jax) > 50
-    header = rows_jax[0]
-    col = {c: i for i, c in enumerate(header)}
+def test_csv_identical_except_scores(jax_rows, torch_run):
+    _engine, rows_torch = torch_run
+    assert rows_torch[0] == jax_rows[0]
+    assert len(rows_torch) == len(jax_rows) > 50
+    col = {c: i for i, c in enumerate(jax_rows[0])}
     others = [i for c, i in col.items() if c not in SCORE_COLS]
-    for rj, rt in zip(rows_jax[1:], rows_torch[1:]):
+    for rj, rt in zip(jax_rows[1:], rows_torch[1:]):
         assert [rt[i] for i in others] == [rj[i] for i in others]
 
 
-def test_scores_within_tolerance(both_runs):
-    rows_jax, rows_torch = both_runs
-    col = {c: i for i, c in enumerate(rows_jax[0])}
+def test_scores_within_tolerance(jax_rows, torch_run):
+    engine, rows_torch = torch_run
+    col = {c: i for i, c in enumerate(jax_rows[0])}
     scored = 0
-    for rj, rt in zip(rows_jax[1:], rows_torch[1:]):
+    for rj, rt in zip(jax_rows[1:], rows_torch[1:]):
         for name in SCORE_COLS:
             a, b = rj[col[name]], rt[col[name]]
             if a in ("?", ""):
                 assert b == a
                 continue
-            assert abs(float(a) - float(b)) <= 1e-3, (name, a, b)
+            assert abs(float(a) - float(b)) <= SCORE_TOL[engine], \
+                (name, a, b)
             scored += 1
     assert scored > 0, "no guide reached off-target scoring"
+    if engine == "auto":
+        assert rows_torch == jax_rows
+
+
+def test_auto_engine_rule():
+    """The JAX rule with its TPU mapped to CUDA: compact on CUDA at
+    l=20 / w=8, the general exact engine everywhere else."""
+    from types import SimpleNamespace
+
+    from crackling_tpu_torch.pipeline.run import select_auto_engine
+
+    def index(seq_length=20, slice_width=8):
+        return SimpleNamespace(seq_length=seq_length,
+                               slice_width=slice_width)
+
+    assert select_auto_engine(index(), "cuda") == "compact"
+    assert select_auto_engine(index(), "cpu") == "xla"
+    assert select_auto_engine(index(seq_length=16), "cuda") == "xla"
+    assert select_auto_engine(index(slice_width=4), "cuda") == "xla"
+
+
+def test_mxu_falls_back_to_xla(mini_world, tmp_path, monkeypatch,  # noqa: F811
+                               capsys):
+    """``engine = mxu`` on an index the MXU engine cannot hold (here: no
+    free memory) logs the fallback and builds the general exact engine
+    in the device's dtype, as the JAX pipeline does."""
+    import crackling_tpu_torch.ops.issl_mxu as port_mxu
+    from crackling_tpu_torch.ops.issl_flat import IsslScorer
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline
+
+    cm = ConfigManager(str(_config(mini_world, tmp_path / "out", "mxu")),
+                       lambda m: None)
+    assert cm.isConfigured()
+    monkeypatch.setattr(port_mxu, "free_bytes", lambda device: 0)
+    scorer = Pipeline(cm, device="cpu")._get_issl_scorer()
+    assert isinstance(scorer, IsslScorer)
+    assert scorer.dtype == torch.float64 and scorer.method == "and"
+    assert "MXU engine unavailable" in capsys.readouterr().out
