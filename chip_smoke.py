@@ -6,9 +6,9 @@
 Needs one CUDA GPU, ``nvcc`` (PATH or /usr/local/cuda/bin) and ``g++``.
 Phases, each fatal on failure:
 
-1. build the two kernel libraries (nvcc, sm_90a: the compact finder and
-   the neighbour finder) and the native host library (g++) from the
-   package's sources, in parallel; print the card;
+1. build the three kernel libraries (nvcc, sm_90a: the compact finder,
+   the neighbour finder and the full-scan scorers) and the native host
+   library (g++) from the package's sources, in parallel; print the card;
 2. hold the compact finder kernel against its plain PyTorch version,
    cell for cell (exact), on a small index, a skewed index whose deep
    bucket turns the superchunk level on, and 16 buckets of the full page;
@@ -34,20 +34,38 @@ Phases, each fatal on failure:
    verdicts identical to the native exact scorer's; then a 256-query
    page timed at the GPU's work block and at the JAX engine's 2^17, in
    turns;
-7. the hybrid's verdicts for all five methods against ``score_exact`` on
-   the small index, with its own band and with an infinite one, which
-   re-scores every query through the neighbour finder on the card;
-8. ``Crackling -c config.ini`` through its CLI entry point on the GPU
-   twice, every kernel's launch counter and plain-call counter reset
-   just before each run and read just after: ``engine = auto`` (the
-   compact finder must have launched), then ``engine = exact`` on the
-   same files (the neighbour finder must have launched), with no plain
-   version run in either; the ``exact`` run's ``passedOffTargetScore``
-   column must equal the ``auto`` run's row by row;
-9. ``scoreOfftargets`` through its CLI entry point on the GPU against a
-   2,048-query file of the 27 Mbp index: verdicts identical to the
-   native exact scorer's, scores within its f32 tier (``SCORE_RTOL``);
-10. print the kernels line and, last, the device line.
+7. hold both full-scan kernels (the dense engine's ``dense_scan``, the
+   scan-style engine's ``bucket_scan``) against their plain versions,
+   every cell within rtol 1e-12 / atol 1e-9 (f64 sums of the same f32
+   terms in another order), on the small index, the skewed index and 16
+   buckets of the 65,536-query page;
+8. score that page with the dense engine (kernel time with CUDA events,
+   plan and page on the host clock, a 2,048-query sample within rtol
+   1e-4 of the exact sums); then the hybrid over it (``last_rescored``,
+   page wall time, sample verdicts identical to native exact for
+   ``and``); then the same 65,536 queries with the scan-style engine in
+   8,192-query pages, timed and checked the same way;
+9. the deep bucket: an index with one bucket of more than 2^22 entries,
+   written to a ``.issl``, through ``Pipeline._get_issl_scorer`` with
+   ``engine = compact``: it must log the fallback and build the hybrid
+   over the dense engine, whose verdicts on 256 queries (half in the deep
+   bucket) must equal native exact;
+10. the hybrid's verdicts for all five methods against ``score_exact`` on
+    the small index, over each fast engine (compact and dense), with its
+    own band and with an infinite one, which re-scores every query
+    through the neighbour finder on the card;
+11. ``Crackling -c config.ini`` through its CLI entry point on the GPU
+    four times, every kernel's launch counter and plain-call counter
+    reset just before each run and read just after: ``engine = auto``
+    (the compact finder must have launched), then ``exact`` (the
+    neighbour finder), ``dense`` (``dense_scan``) and ``pallas``
+    (``bucket_scan``) on the same files, with no plain version run in
+    any; each run's ``passedOffTargetScore`` column must equal the
+    ``auto`` run's row by row;
+12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
+    2,048-query file of the 27 Mbp index: verdicts identical to the
+    native exact scorer's, scores within its f32 tier (``SCORE_RTOL``);
+13. print the kernels line and, last, the device line.
 
 The first, uncached run also builds the 27 Mbp dataset (~17 s of host
 work on an 8-core H100 host); ``CHIP_SMOKE_GENOME_MBP`` /
@@ -83,6 +101,14 @@ FINDER_OPS_PER_PAIR = 12
 # ... and of the neighbour finder's: the same and a subtract, for the
 # 1..max_dist range test
 MXU_OPS_PER_PAIR = 13
+# ... and of the full-scan scorers': the compact finder's predicate (the
+# dedup and the terms run only on the rare pairs within max_dist)
+FULLSCAN_OPS_PER_PAIR = FINDER_OPS_PER_PAIR
+# the full-scan kernels against their plain versions: f64 sums of the
+# same f32 terms, summed in another order
+FULLSCAN_RTOL, FULLSCAN_ATOL = 1e-12, 1e-9
+# the scan-style engine's page (its default query_page)
+SCAN_PAGE = 8192
 # the MXU engine's page (its default query_page)
 MXU_PAGE = min(32768, N_QUERIES)
 SAMPLE = 2048
@@ -267,7 +293,7 @@ def phase_build():
     from crackling_tpu_torch import native
     from crackling_tpu_torch.ops.kernel_build import build_library
 
-    sources = ("compact_finder.cu", "mxu_finder.cu")
+    sources = ("compact_finder.cu", "mxu_finder.cu", "fullscan.cu")
     with ThreadPoolExecutor(len(sources) + 1) as ex:
         kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
@@ -726,60 +752,302 @@ def phase_flat(dev, index, queries):
           "page256_s_by_work_block": wb_s})
 
 
-def phase_hybrid_methods(dev):
-    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
-    from crackling_tpu_torch.ops.mxu_finder import mxu_finder
-    from crackling_tpu_torch.ops.oracle import score_exact
-    from crackling_tpu_torch.pipeline.run import verdicts
+def fullscan_engines(index, dev, **dense_kw):
+    from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
+    from crackling_tpu_torch.ops.issl_scan import ScanIsslScorer
 
-    index, queries = small_world()
-    res, launches = {}, {}
-    for method, thr in METHODS:
-        want = verdicts(*score_exact(index, queries, 4, thr, method), thr,
-                        method)
-        for band in (None, np.inf):
-            before = mxu_finder.launches
-            hy = HybridIsslScorer(index, max_dist=4, method=method,
-                                  threshold=thr, band=band, device=dev,
-                                  chunk=1024)
-            got = verdicts(*hy.score(queries), thr, method)
-            if not np.array_equal(got, want):
-                fail(f"hybrid verdicts differ from score_exact ({method})")
-        # the infinite band re-scored every query through the MXU engine's
-        # neighbour finder on the card
-        launches[method] = mxu_finder.launches - before
-        if torch_is_cuda(dev) and launches[method] <= 0:
-            fail("the hybrid's exact re-score did not launch the "
-                 "neighbour finder")
-        res[method] = int(want.sum())
-    emit({"phase": "hybrid_methods", "accepted": res,
-          "mxu_finder_launches_band_inf": launches})
+    return (DenseIsslScorer(index, max_dist=4, device=dev, **dense_kw),
+            ScanIsslScorer(index, max_dist=4, device=dev))
 
 
-def torch_is_cuda(dev):
+def dense_inputs(eng, queries):
+    """The dense scan's inputs for one page of ``queries`` (the slot plan
+    the engine itself makes)."""
+    from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+
+    qb, _ = plan_query_occupancy(queries, eng.S, eng.B, 8, eng.qb_cap)
+    if qb is None:
+        fail("query page overflows the dense engine's qb_cap")
+    q = eng.query_tensor(queries)
+    return q, eng.plan(q, qb)
+
+
+def hit_count(eng, q, qsp, blen):
+    """Hits of the full-scan predicate on this plan: the compact finder's
+    plain version tests the same predicate (w = 8); its bucket totals."""
+    from crackling_tpu_torch.ops.compact_finder import (KERNEL_TILE,
+                                                        compact_finder_plain)
+
+    width = max(KERNEL_TILE, -(-int(blen.max()) // KERNEL_TILE)
+                * KERNEL_TILE)
+    fo = compact_finder_plain(eng.entries, eng.bucket_offsets, blen, q, qsp,
+                              chunk=width, nchmax=1, superchunk=0,
+                              max_dist=eng.max_dist)
+    return int(fo.cnt[:, :, -1].sum())
+
+
+def check_sums(what, got, want):
+    """Fail unless every cell of the kernel's sums lies within
+    FULLSCAN_RTOL / FULLSCAN_ATOL of the plain version's; return the
+    largest absolute and relative errors."""
     import torch
 
-    return torch.device(dev).type == "cuda"
+    errs = [0.0, 0.0]
+    for name, a, b in zip(("mit", "cfd"), got, want):
+        d = (a - b).abs()
+        bad = d > FULLSCAN_ATOL + FULLSCAN_RTOL * b.abs()
+        if bool(bad.any()):
+            fail(f"{what} kernel disagrees with its plain version on {name}"
+                 f" ({int(bad.sum())} cells, max abs diff {float(d.max())})")
+        rel = torch.where(b != 0, d / b.abs(), d)
+        errs = [max(errs[0], float(d.max())), max(errs[1], float(rel.max()))]
+    return errs
 
 
-def phase_pipeline(dev, files, engine):
-    """``Crackling -c`` with ``[tpu] engine = <engine>``. Every kernel's
-    launch count and its plain version's call count are set to 0 just
-    before the run and read just after: the finder that engine runs (the
-    compact one for ``auto``, the neighbour finder for ``exact``) must
-    have launched, and no plain version may have run. Returns (launches
-    of that finder, rows)."""
-    from crackling_tpu_torch.constants import GUIDE_COLUMNS
-    from crackling_tpu_torch.ops import compact_finder as cf
-    from crackling_tpu_torch.ops import mxu_finder as mf
-    from crackling_tpu_torch.utils import cli
+def compare_dense(eng, q, qsp, blen=None):
+    from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
 
-    kernels = {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
-               "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain)}
-    main = "compact_finder" if engine == "auto" else "mxu_finder"
-    out = CACHE / f"pipeline_{engine}"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
+    blen = eng.bucket_lens if blen is None else blen
+    args = (eng.entries, eng.occ, eng.bucket_offsets, blen, q, qsp)
+    kw = dict(max_dist=eng.max_dist, tabs=eng.tables)
+    got = dense_scan(*args, **kw)
+    want = dense_scan_plain(*args, **kw)
+    sync(q.device)
+    return check_sums("dense scan", got, want), hit_count(eng, q, qsp, blen)
+
+
+def compare_scan(eng, q, blen=None):
+    from crackling_tpu_torch.ops.fullscan import (bucket_scan,
+                                                  bucket_scan_plain)
+
+    blen = eng.bucket_lens if blen is None else blen
+    qoff, qsorted = eng.plan(q)
+    args = (eng.entries, eng.occ, eng.bucket_offsets, blen, q, qoff, qsorted)
+    kw = dict(slice_width=eng.index.slice_width, max_dist=eng.max_dist,
+              tabs=eng.tables)
+    got = bucket_scan(*args, **kw)
+    want = bucket_scan_plain(*args, **kw)
+    sync(q.device)
+    return check_sums("bucket scan", got, want)
+
+
+def phase_fullscan_kernels_vs_plain(dev, bench_dense, bench_scan, queries):
+    """Both full-scan kernels against their plain versions on the small
+    index, the skewed index and 16 buckets of the 65,536-query page;
+    returns each kernel's largest (abs, rel) error."""
+    worst = {"dense_scan": [0.0, 0.0], "bucket_scan": [0.0, 0.0]}
+    inputs = []
+    for name, world in (("small", small_world), ("skewed", skewed_world)):
+        index, qs = world()
+        dense, scan = fullscan_engines(index, dev, chunk=1024)
+        inputs.append((name, dense, scan, qs, None))
+    # 8 buckets each of slices 0 and 4 of the full page: other buckets
+    # are given length 0, so both versions skip them
+    blen = bench_dense.bucket_lens.clone()
+    keep = blen.new_zeros(blen.shape, dtype=bool)
+    keep[0, 40:48] = True
+    keep[-1, 200:208] = True
+    blen[~keep] = 0
+    inputs.append(("bench page, 16 buckets", bench_dense, bench_scan,
+                   queries, blen))
+    for name, dense, scan, qs, bl in inputs:
+        q, qsp = dense_inputs(dense, qs)
+        derr, hits = compare_dense(dense, q, qsp, bl)
+        serr = compare_scan(scan, q, bl)
+        for k, e in (("dense_scan", derr), ("bucket_scan", serr)):
+            worst[k] = [max(a, b) for a, b in zip(worst[k], e)]
+        emit({"phase": "fullscan_kernels_vs_plain", "input": name,
+              "qb": int(qsp.shape[2]), "hits": hits,
+              "dense_scan_max_abs_err": derr[0],
+              "dense_scan_max_rel_err": derr[1],
+              "bucket_scan_max_abs_err": serr[0],
+              "bucket_scan_max_rel_err": serr[1]})
+    return worst
+
+
+def fullscan_bound_ms(eng, pairs, nbytes):
+    """Least time for a full-scan kernel's work: the larger of its
+    operations over the ALU peak and its bytes over HBM bandwidth (the
+    entries, occurrences and tables read once, the sums written once)."""
+    nbytes += eng.tables.mit.numel() * 4 + eng.tables.pen.numel() * 4
+    t_ops = pairs * FULLSCAN_OPS_PER_PAIR / H100_ALU_OPS_PER_S * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def sample_vs_exact(eng, what, index, mit_sum, cfd_sum, sample_idx, sample):
+    """Raw full-scan sums of a sample against the native exact scorer's
+    (no early exit): within rtol 1e-4; returns the largest relative error
+    and the largest score deviation."""
+    from crackling_tpu_torch import native
+
+    ex = native.exact_score_native(index, sample, 4, None, "and")
+    if ex is None:
+        fail("native exact scorer unavailable")
+    ex_sums = [10000.0 / s - 100.0 for s in ex]
+    rel, dev_score = 0.0, 0.0
+    for name, got, want in (("mit", mit_sum[sample_idx], ex_sums[0]),
+                            ("cfd", cfd_sum[sample_idx], ex_sums[1])):
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+            bad = np.abs(got - want) / np.maximum(np.abs(want), 1e-4)
+            fail(f"{what} {name} sums disagree with the exact scorer "
+                 f"(max rel err {bad.max():.3e})")
+        rel = max(rel, float((np.abs(got - want)
+                              / np.maximum(np.abs(want), 1e-4)).max()))
+        dev_score = max(dev_score, float(np.abs(
+            10000.0 / (100.0 + got) - 10000.0 / (100.0 + want)).max()))
+    return rel, dev_score
+
+
+def phase_dense_page(dev, eng, queries, card):
+    """The dense engine on the 65,536-query page, then the hybrid over
+    it."""
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.pipeline.run import verdicts
+
+    mit_sum, cfd_sum = eng.score_sums(queries)                 # warm
+    walls = host_walls(lambda: eng.score_sums(queries), dev)
+    page_s = float(np.median(walls))
+    q, qsp = dense_inputs(eng, queries)
+    args = (eng.entries, eng.occ, eng.bucket_offsets, eng.bucket_lens, q,
+            qsp)
+    kw = dict(max_dist=eng.max_dist, tabs=eng.tables)
+    kernel_ms = timed_ms(lambda: dense_scan(*args, **kw), 3, dev)
+    plan_ms = float(np.median(host_walls(
+        lambda: dense_inputs(eng, queries), dev))) * 1e3
+    sync(dev)
+    t = time.perf_counter()
+    dense_scan_plain(*args, **kw)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    n = q.numel()
+    qcount = (qsp < n).sum(-1).long()
+    blen = eng.bucket_lens.long()
+    pairs = int((blen * qcount).sum())
+    S, B, qb = qsp.shape
+    bound_ms, bound_by = fullscan_bound_ms(
+        eng, pairs, int(blen.sum()) * 12 + qsp.numel() * 4 + n * 8
+        + S * B * 12 + S * B * qb * 16)
+
+    rng = np.random.default_rng(SEED + 5)
+    pick = rng.choice(queries.shape[0], size=min(SAMPLE, queries.shape[0]),
+                      replace=False)
+    sample = queries[pick]
+    rel, score_dev = sample_vs_exact(eng, "dense", eng.index, mit_sum,
+                                     cfd_sum, pick, sample)
+    hyb = HybridIsslScorer(eng.index, max_dist=4, method="and",
+                           threshold=75.0, dense=eng)
+    hm, hc = hyb.score(sample)
+    em, ec = native.exact_score_native(eng.index, sample, 4, 75.0, "and")
+    if not np.array_equal(verdicts(hm, hc, 75.0, "and"),
+                          verdicts(em, ec, 75.0, "and")):
+        fail("hybrid-dense verdicts differ from the exact scorer's "
+             "(and, 75)")
+    sample_rescored = hyb.last_rescored
+    hyb_walls = host_walls(lambda: hyb.score(queries), dev)
+    emit({"phase": "dense_page", "card": card, "device": str(dev),
+          "sites": eng.index.num_sites, "queries": n, "qb": qb,
+          "pairs": pairs, "page_wall_s": walls, "plan_ms": plan_ms,
+          "kernel_ms": kernel_ms, "kernel_plain_ms": plain_ms,
+          "kernel_bound_ms": bound_ms, "kernel_bound_by": bound_by,
+          "dense_guides_per_s": n / page_s,
+          "sample_max_rel_err": rel, "sample_max_score_dev": score_dev,
+          "hybrid_band": hyb.band, "hybrid_sample_rescored": sample_rescored,
+          "hybrid_page_wall_s": hyb_walls,
+          "last_rescored": hyb.last_rescored,
+          "hybrid_guides_per_s": n / float(np.median(hyb_walls))})
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_scan_page(dev, eng, queries, card):
+    """The scan-style engine on the 65,536 queries in 8,192-query
+    pages."""
+    from crackling_tpu_torch.ops.fullscan import (bucket_scan,
+                                                  bucket_scan_plain)
+
+    mit_sum, cfd_sum = eng.score_sums(queries)                 # warm
+    walls = host_walls(lambda: eng.score_sums(queries), dev)
+    page = queries[:eng.query_page]
+    q = eng.query_tensor(page)
+    qoff, qsorted = eng.plan(q)
+    args = (eng.entries, eng.occ, eng.bucket_offsets, eng.bucket_lens, q,
+            qoff, qsorted)
+    kw = dict(slice_width=eng.index.slice_width, max_dist=eng.max_dist,
+              tabs=eng.tables)
+    kernel_ms = timed_ms(lambda: bucket_scan(*args, **kw), 3, dev)
+    page_ms = float(np.median(host_walls(lambda: eng.run_page(page),
+                                         dev))) * 1e3
+    plan_ms = float(np.median(host_walls(lambda: eng.plan(q), dev))) * 1e3
+    sync(dev)
+    t = time.perf_counter()
+    bucket_scan_plain(*args, **kw)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    counts = (qoff[:, 1:] - qoff[:, :-1]).long()
+    blen = eng.bucket_lens.long()
+    pairs = int((blen * counts).sum())
+    S, n = qsorted.shape
+    bound_ms, bound_by = fullscan_bound_ms(
+        eng, pairs, int(blen.sum()) * 12 + qoff.numel() * 4
+        + qsorted.numel() * 4 + n * 8 + S * eng.B * 12 + S * n * 16)
+    rng = np.random.default_rng(SEED + 6)
+    pick = rng.choice(queries.shape[0], size=min(SAMPLE, queries.shape[0]),
+                      replace=False)
+    rel, score_dev = sample_vs_exact(eng, "scan-style", eng.index, mit_sum,
+                                     cfd_sum, pick, queries[pick])
+    page_s = float(np.median(walls))
+    emit({"phase": "scan_page", "card": card, "device": str(dev),
+          "queries": int(queries.shape[0]), "query_page": eng.query_page,
+          "launches_per_pass": -(-queries.shape[0] // eng.query_page),
+          "pairs_per_page": pairs, "pass_wall_s": walls,
+          "page_ms": page_ms, "plan_ms": plan_ms, "kernel_ms": kernel_ms,
+          "kernel_plain_ms": plain_ms, "kernel_bound_ms": bound_ms,
+          "kernel_bound_by": bound_by,
+          "scan_guides_per_s": queries.shape[0] / page_s,
+          "sample_max_rel_err": rel, "sample_max_score_dev": score_dev})
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def deep_world(seed=31, n_deep=4_300_000):
+    """~4.3 M random sites share their slice-0 byte: one bucket of more
+    than 2^22 entries, past the compact engine's rank bound (and the MXU
+    engine's). Queries: 128 in the deep bucket (64 of its sites, 32 of
+    them with a repeated one-base neighbour, and 64 one-base variants of
+    other sites) and 128 elsewhere."""
+    from crackling_tpu_torch.index import build_index
+
+    rng = np.random.default_rng(seed)
+
+    def pin(sigs):
+        return (sigs & ~np.uint64(0xFF)) | np.uint64(0x55)
+
+    deep = pin(rng.integers(0, 1 << 40, size=n_deep).astype(np.uint64))
+    filler = rng.integers(0, 1 << 40, size=20_000).astype(np.uint64)
+    # one-base variants of 32 of the queries, 1-60 copies each, so their
+    # scores spread across the threshold
+    hot_pos = rng.integers(4, 20, size=32).astype(np.uint64) * np.uint64(2)
+    base = (deep[:32] >> hot_pos) & np.uint64(3)
+    hot = ((deep[:32] & ~(np.uint64(3) << hot_pos))
+           | (((base + np.uint64(1)) & np.uint64(3)) << hot_pos))
+    index = build_index(np.concatenate([
+        deep, filler, np.repeat(hot, rng.integers(1, 61, size=32))]))
+    pos = rng.integers(4, 20, size=64).astype(np.uint64) * np.uint64(2)
+    variants = ((deep[64:128] & ~(np.uint64(3) << pos))
+                | (rng.integers(0, 4, size=64).astype(np.uint64) << pos))
+    queries = np.concatenate([
+        deep[:64], variants, filler[:64],
+        rng.integers(0, 1 << 40, size=64).astype(np.uint64)])
+    return index, queries
+
+
+def write_config(out, files, engine, sites=None):
+    """A ``Crackling`` config on the bench files (``sites`` replaces the
+    off-target index) with ``[tpu] engine = <engine>``."""
     cfg = out / "config.ini"
     cfg.write_text(f"""[general]
 name = smoke
@@ -793,7 +1061,7 @@ chopchop = True
 
 [input]
 exon-sequences = {files['exons']}
-offtarget-sites = {files['issl']}
+offtarget-sites = {sites or files['issl']}
 gff-annotation =
 bowtie2-index = {files['genome']}
 batch-size = 5000000
@@ -831,6 +1099,144 @@ high_energy_threshold = -18
 [tpu]
 engine = {engine}
 """)
+    return cfg
+
+
+def phase_deep_bucket(dev, files):
+    """``engine = compact`` on an index past the compact rank bound: the
+    logged fallback to the hybrid over the dense engine, verdicts equal to
+    native exact on 256 queries."""
+    import contextlib
+    import io
+
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.index import write_reference_issl
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.ops.issl_compact import RANK_BOUND
+    from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline, verdicts
+
+    t = time.perf_counter()
+    index, queries = deep_world()
+    deepest = int(np.diff(index.bucket_offsets, axis=1).max())
+    if deepest < RANK_BOUND:
+        fail(f"the deep index's deepest bucket ({deepest:,}) is within the "
+             "compact rank bound")
+    out = CACHE / "deep_bucket"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    issl = out / "deep.issl"
+    write_reference_issl(index, str(issl))
+    build_s = time.perf_counter() - t
+    cm = ConfigManager(str(write_config(out, files, "compact", issl)),
+                       lambda m: None)
+    if not cm.isConfigured():
+        fail("the deep-bucket config did not load")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        scorer = Pipeline(cm, device=dev)._get_issl_scorer()
+    load_s = time.perf_counter() - t
+    if "compact engine unavailable" not in buf.getvalue() \
+            or "using the dense engine" not in buf.getvalue():
+        fail("engine = compact on the deep index did not log the dense "
+             "fallback")
+    if not isinstance(scorer, HybridIsslScorer) \
+            or not isinstance(scorer.dense, DenseIsslScorer):
+        fail(f"the deep index's scorer is {type(scorer).__name__} over "
+             f"{type(getattr(scorer, 'dense', None)).__name__}, not the "
+             "hybrid over the dense engine")
+    t = time.perf_counter()
+    got = scorer.score(queries)
+    sync(dev)
+    score_s = time.perf_counter() - t
+    want = native.exact_score_native(scorer.index, queries, 4, 75.0, "and")
+    if not np.array_equal(verdicts(*got, 75.0, "and"),
+                          verdicts(*want, 75.0, "and")):
+        fail("deep-bucket verdicts differ from the native exact scorer")
+    emit({"phase": "deep_bucket", "sites": index.num_sites,
+          "deepest_bucket": deepest, "queries": int(queries.shape[0]),
+          "rescored": scorer.last_rescored,
+          "rescorer": type(scorer._exact).__name__ if scorer._exact
+          else None, "index_build_s": build_s, "pipeline_load_s": load_s,
+          "score_s": score_s,
+          "accepted": int(verdicts(*got, 75.0, "and").sum())})
+
+
+def phase_hybrid_methods(dev, fast):
+    """The hybrid over ``fast`` (``compact``, passed in as the pipeline
+    passes it, or its default, ``dense``) on the small index."""
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+    from crackling_tpu_torch.ops.mxu_finder import mxu_finder
+    from crackling_tpu_torch.ops.oracle import score_exact
+    from crackling_tpu_torch.pipeline.run import verdicts
+
+    index, queries = small_world()
+    res, launches, rescored = {}, {}, {}
+    for method, thr in METHODS:
+        want = verdicts(*score_exact(index, queries, 4, thr, method), thr,
+                        method)
+        for band in (None, np.inf):
+            before = mxu_finder.launches
+            engine = (CompactIsslScorer(index, max_dist=4, chunk=1024,
+                                        device=dev)
+                      if fast == "compact" else None)
+            hy = HybridIsslScorer(index, max_dist=4, method=method,
+                                  threshold=thr, band=band, device=dev,
+                                  dense=engine,
+                                  **({} if engine else dict(chunk=1024)))
+            got = verdicts(*hy.score(queries), thr, method)
+            if not np.array_equal(got, want):
+                fail(f"hybrid-{fast} verdicts differ from score_exact "
+                     f"({method}, band {band})")
+            if band is None:
+                own_band = hy.band
+                rescored[method] = hy.last_rescored
+        # the infinite band re-scored every query through the MXU engine's
+        # neighbour finder on the card
+        launches[method] = mxu_finder.launches - before
+        if torch_is_cuda(dev) and launches[method] <= 0:
+            fail("the hybrid's exact re-score did not launch the "
+                 "neighbour finder")
+        res[method] = int(want.sum())
+    emit({"phase": "hybrid_methods", "fast": fast, "band": own_band,
+          "accepted": res,
+          "rescored_own_band": rescored,
+          "mxu_finder_launches_band_inf": launches})
+
+
+def torch_is_cuda(dev):
+    import torch
+
+    return torch.device(dev).type == "cuda"
+
+
+def phase_pipeline(dev, files, engine):
+    """``Crackling -c`` with ``[tpu] engine = <engine>``. Every kernel's
+    launch count and its plain version's call count are set to 0 just
+    before the run and read just after: the kernel that engine runs (the
+    compact finder for ``auto``, the neighbour finder for ``exact``,
+    ``dense_scan`` for ``dense``, ``bucket_scan`` for ``pallas``) must
+    have launched, and no plain version may have run. Returns (launches
+    of that kernel, rows)."""
+    from crackling_tpu_torch.constants import GUIDE_COLUMNS
+    from crackling_tpu_torch.ops import compact_finder as cf
+    from crackling_tpu_torch.ops import fullscan as fs
+    from crackling_tpu_torch.ops import mxu_finder as mf
+    from crackling_tpu_torch.utils import cli
+
+    kernels = {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
+               "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
+               "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
+               "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
+    main = {"auto": "compact_finder", "exact": "mxu_finder",
+            "dense": "dense_scan", "pallas": "bucket_scan"}[engine]
+    out = CACHE / f"pipeline_{engine}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = write_config(out, files, engine)
     on_gpu = torch_is_cuda(dev)
     if on_gpu:
         os.environ.pop("CRACKLING_PLATFORM", None)
@@ -851,7 +1257,8 @@ engine = {engine}
             fail(f"Crackling (engine = {engine}) ran without launching "
                  f"{main}")
         if any(plain_calls.values()):
-            fail(f"a plain finder ran on the GPU path: {plain_calls}")
+            fail(f"a plain kernel version ran on the GPU path: "
+                 f"{plain_calls}")
     import csv
 
     out_csv = out / "smoke-guides.txt"
@@ -879,16 +1286,16 @@ engine = {engine}
     return launches[main], rows
 
 
-def same_verdicts(rows_a, rows_b):
-    """Fail unless two pipeline CSVs list the same guides with the same
-    ``passedOffTargetScore``, row by row."""
-    col = rows_a[0].index("passedOffTargetScore")
-    if len(rows_a) != len(rows_b):
-        fail("the engine = exact run wrote another number of rows")
+def same_verdicts(rows_auto, rows, engine):
+    """Fail unless the ``engine`` run's CSV lists the ``auto`` run's guides
+    with the same ``passedOffTargetScore``, row by row."""
+    col = rows_auto[0].index("passedOffTargetScore")
+    if len(rows_auto) != len(rows):
+        fail(f"the engine = {engine} run wrote another number of rows")
     diff = sum(a[0] != b[0] or a[col] != b[col]
-               for a, b in zip(rows_a[1:], rows_b[1:]))
+               for a, b in zip(rows_auto[1:], rows[1:]))
     if diff:
-        fail(f"engine = exact and engine = auto disagree on "
+        fail(f"engine = {engine} and engine = auto disagree on "
              f"passedOffTargetScore in {diff} rows")
 
 
@@ -979,10 +1386,28 @@ def main():
     torch.cuda.empty_cache()
     phase_mxu_small(dev)
     phase_flat(dev, index, queries)
-    phase_hybrid_methods(dev)
+
+    dense, scan = fullscan_engines(index, dev)
+    fullscan_err = phase_fullscan_kernels_vs_plain(dev, dense, scan, queries)
+    dense_stats = phase_dense_page(dev, dense, queries, card)
+    phase_profile(dev, lambda: dense.score_sums(queries), "dense.")
+    del dense
+    torch.cuda.empty_cache()
+    scan_stats = phase_scan_page(dev, scan, queries, card)
+    del scan
+    torch.cuda.empty_cache()
+    phase_deep_bucket(dev, files)
+    torch.cuda.empty_cache()
+    for fast in ("compact", "dense"):
+        phase_hybrid_methods(dev, fast)
+
     compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
-    mxu["launches"], rows_exact = phase_pipeline(dev, files, "exact")
-    same_verdicts(rows_auto, rows_exact)
+    mxu["launches"], rows = phase_pipeline(dev, files, "exact")
+    same_verdicts(rows_auto, rows, "exact")
+    dense_stats["launches"], rows = phase_pipeline(dev, files, "dense")
+    same_verdicts(rows_auto, rows, "dense")
+    scan_stats["launches"], rows = phase_pipeline(dev, files, "pallas")
+    same_verdicts(rows_auto, rows, "pallas")
     phase_score_offtargets(dev, index, queries, files)
     log(f"all phases passed in {time.time() - t0:.1f} s")
 
@@ -991,11 +1416,25 @@ def main():
         {"name": "compact_finder", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/compact_finder.cu",
          "replaces": "crackling_tpu/ops/issl_compact.py:247",
-         "max_abs_err": compact_err, "library_ms": None, **compact},
+         "max_abs_err": compact_err, "max_rel_err": compact_err,
+         "library_ms": None, **compact},
         {"name": "mxu_finder", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/mxu_finder.cu",
          "replaces": "crackling_tpu/ops/issl_mxu.py:67",
-         "max_abs_err": mxu_err, "library_ms": None, **mxu}]})
+         "max_abs_err": mxu_err, "max_rel_err": mxu_err,
+         "library_ms": None, **mxu},
+        {"name": "dense_scan", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/fullscan.cu",
+         "replaces": "crackling_tpu/ops/issl_dense.py:66",
+         "max_abs_err": fullscan_err["dense_scan"][0],
+         "max_rel_err": fullscan_err["dense_scan"][1],
+         "library_ms": None, **dense_stats},
+        {"name": "bucket_scan", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/fullscan.cu",
+         "replaces": "crackling_tpu/ops/issl_pallas.py:62",
+         "max_abs_err": fullscan_err["bucket_scan"][0],
+         "max_rel_err": fullscan_err["bucket_scan"][1],
+         "library_ms": None, **scan_stats}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

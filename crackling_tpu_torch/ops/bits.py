@@ -84,3 +84,16 @@ def earlier_slice_clean(c40: torch.Tensor, s) -> torch.Tensor:
     earlier = (torch.ones_like(s) << (8 * s)) - 1        # bytes 0..s-1
     xb = (c40 & _M32) | (earlier ^ _M32)
     return ((xb - 0x01010101) & ~xb & 0x80808080) != 0
+
+
+def earlier_slice_clean_raw(x: torch.Tensor, s, width: int,
+                            slices: int) -> torch.Tensor:
+    """The same dedup test at any slice width, on the raw XOR ``x`` of
+    query and site: True where a slice ``s' < s`` (of ``slices``, each
+    ``width`` bits, slice ``s'`` at bits ``s'*width``) has all its XOR
+    bits 0. ``s`` is an int or a tensor that broadcasts against ``x``."""
+    mask = (1 << width) - 1
+    seen = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for sp in range(slices - 1):
+        seen |= (((x >> (sp * width)) & mask) == 0) & (sp < s)
+    return seen

@@ -163,11 +163,12 @@ compact_finder.launches = 0
 
 class PairBlock(NamedTuple):
     """One block of (query slot, bucket entry) pairs, one row per pair."""
-    slot: torch.Tensor    # flat slot (s*B + b)*qb + j
+    slot: torch.Tensor    # the slot's index in the flat plan
     sl: torch.Tensor      # slice s
     r: torch.Tensor       # the entry's in-bucket rank
     e: torch.Tensor       # the entry's packed signature (int64)
     q: torch.Tensor       # the slot's query signature (int64)
+    at: torch.Tensor      # the entry's index in the flattened (S, Epad) lists
 
 
 def slot_entry_pairs(entries: torch.Tensor, boff: torch.Tensor,
@@ -175,21 +176,35 @@ def slot_entry_pairs(entries: torch.Tensor, boff: torch.Tensor,
                      qsp: torch.Tensor,
                      block: int = PLAIN_PAIR_BLOCK) -> Iterator[PairBlock]:
     """The (slot, entry) pairs of every occupied slot (a query id in
-    ``[0, n)``) with every entry of its bucket, in blocks of whole slots
-    holding at most ``block`` pairs (a slot longer than that is its own
-    block): the enumeration both finders' plain versions test. Work
-    follows the pairs the page really has."""
-    dev = entries.device
+    ``[0, n)``) of the (S, B, qb) slot plan with every entry of its
+    bucket, flat slot ``(s*B + b)*qb + j``: the enumeration the finders'
+    plain versions test (:func:`bucket_entry_pairs`)."""
     S, B, qb = qsp.shape
+    sb = torch.arange(S * B * qb, device=entries.device) // qb
+    return bucket_entry_pairs(entries, boff, blen, q_sig,
+                              qsp.reshape(-1).long(), sb, block)
+
+
+def bucket_entry_pairs(entries: torch.Tensor, boff: torch.Tensor,
+                       blen: torch.Tensor, q_sig: torch.Tensor,
+                       qid: torch.Tensor, sb: torch.Tensor,
+                       block: int = PLAIN_PAIR_BLOCK
+                       ) -> Iterator[PairBlock]:
+    """The (slot, entry) pairs of flat slots ``i`` holding query ``qid[i]``
+    of bucket ``sb[i] = s*B + b``, with every entry of that bucket; slots
+    whose id lies outside ``[0, n)`` are padding and have none. Pairs come
+    in blocks of whole slots holding at most ``block`` pairs (a slot
+    longer than that is its own block), so work follows the pairs the
+    page really has."""
+    dev = entries.device
+    B = boff.shape[1]
     n = q_sig.numel()
     epad = entries.shape[1]
-    qid = qsp.reshape(-1).long()
-    slot = torch.arange(S * B * qb, device=dev)
-    sl = slot // (B * qb)
-    sb = slot // qb                                   # s * B + b
+    slot = torch.arange(qid.numel(), device=dev)
     lens = blen.reshape(-1).long()[sb]
     live = (qid < n) & (qid >= 0) & (lens > 0)
-    slot, sl, sb, lens = slot[live], sl[live], sb[live], lens[live]
+    slot, sb, lens = slot[live], sb[live], lens[live]
+    sl = sb // B
     q = q_sig[qid[live]]
     base = sl * epad + boff.reshape(-1)[sb]           # flat bucket start
     flat = entries.reshape(-1)
@@ -204,8 +219,9 @@ def slot_entry_pairs(entries: torch.Tensor, boff: torch.Tensor,
             torch.arange(i1 - i0, device=dev), blens)
         first = torch.cumsum(blens, 0) - blens
         r = torch.arange(rep.numel(), device=dev) - first[rep]
-        yield PairBlock(slot[i0:i1][rep], sl[i0:i1][rep], r,
-                        flat[base[i0:i1][rep] + r], q[i0:i1][rep])
+        at = base[i0:i1][rep] + r
+        yield PairBlock(slot[i0:i1][rep], sl[i0:i1][rep], r, flat[at],
+                        q[i0:i1][rep], at)
         i0 = i1
 
 

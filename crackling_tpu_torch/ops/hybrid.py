@@ -1,10 +1,11 @@
 """Fast full-scan scoring with reference-exact verdicts for all 5 methods.
 
 The port of crackling_tpu/ops/issl_dense.py::HybridIsslScorer and
-``_NativeExact``. A fast engine (the compact engine on the GPU) scores
-every query; the queries whose verdict its rounding could flip are
-scored again exactly: in f64, in the reference's scan order and with its
-early exit.
+``_NativeExact``. A fast full-scan engine (by default the dense engine,
+``ops/issl_dense.py``, as in the JAX package; the pipeline passes the
+compact engine for ``engine = compact | auto``) scores every query; the
+queries whose verdict its rounding could flip are scored again exactly:
+in f64, in the reference's scan order and with its early exit.
 
 Re-score chain, as in the JAX package (``issl_dense.py:537-578``): the
 bit-exact MXU engine (``ops/issl_mxu.py``) on the fast engine's device;
@@ -88,14 +89,16 @@ class HybridIsslScorer:
         self.method = method
         self.threshold = float(threshold)
         # ``dense`` may be any prebuilt full-scan fast engine with the
-        # same score() contract; by default the compact engine
+        # same score() contract (the compact engine, say); by default the
+        # dense engine, built with ``dense_kw``
         if dense is None:
-            from .issl_compact import CompactIsslScorer
+            from .issl_dense import DenseIsslScorer
 
-            dense = CompactIsslScorer(index, max_dist=max_dist,
-                                      device=device, **dense_kw)
+            dense = DenseIsslScorer(index, max_dist=max_dist, device=device,
+                                    **dense_kw)
         self.dense = dense
-        # band=None: the fast engine's advertised rounding band
+        # band=None: the fast engine's advertised rounding band (1.0 for
+        # dense, 0.05 for compact)
         if band is None:
             band = getattr(self.dense, "score_band", 1.0)
         self.band = float(band)

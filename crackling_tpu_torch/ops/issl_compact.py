@@ -126,6 +126,29 @@ def plan_slots(q_sig: torch.Tensor, S: int, B: int,
     return qsp
 
 
+class AlignedLists(NamedTuple):
+    """An index's bucket-aligned lists on a device (one slice per row)."""
+    entries: torch.Tensor   # (S, Epad) int64 packed site signatures
+    occ: torch.Tensor       # (S, Epad) int32 occurrences (0 in padding)
+    boff: torch.Tensor      # (S, B) int64 bucket starts within a row
+    blen: torch.Tensor      # (S, B) int32 bucket lengths
+
+
+def aligned_lists(index: IsslIndex, device, tail: int = 0) -> AlignedLists:
+    """The index's lists with every bucket start on an ALIGN boundary and
+    ``tail`` dead entries after each slice, uploaded to ``device``."""
+    arrs = index.device_arrays_aligned(align=ALIGN, tail=tail)
+    lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
+    hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
+    return AlignedLists(
+        torch.as_tensor((lo | (hi << np.uint64(32))).view(np.int64),
+                        device=device),
+        torch.as_tensor(arrs["list_occ"], device=device),
+        torch.as_tensor(arrs["bucket_offsets"][:, :index.bucket_count]
+                        .astype(np.int64), device=device),
+        torch.as_tensor(arrs["bucket_lens"], device=device))
+
+
 class ScoreTables(NamedTuple):
     mit: torch.Tensor     # (2^20,) f32 local MIT score by 20-bit mask
     pen: torch.Tensor     # (20, 16) f32 CFD position penalties
@@ -375,7 +398,6 @@ class CompactIsslScorer:
             raise ValueError(
                 f"bucket with {maxblen:,} entries exceeds the moment "
                 "decoder's 2^22 rank-exactness bound")
-        arrs = index.device_arrays_aligned(align=ALIGN, tail=self.chunk)
         self._nchmax = max(1, -(-maxblen // self.chunk))
         self.superchunk = (auto_superchunk(self._nchmax)
                            if superchunk is None else int(superchunk))
@@ -387,16 +409,9 @@ class CompactIsslScorer:
         # (entries past a bucket's end never hit)
         self._scan_width = min(self.chunk, max(64, -(-maxblen // 64) * 64))
 
-        lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
-        hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
-        dev = self.device
-        self.entries = torch.as_tensor(
-            (lo | (hi << np.uint64(32))).view(np.int64), device=dev)
-        self.occ = torch.as_tensor(arrs["list_occ"], device=dev)
-        self.bucket_offsets = torch.as_tensor(
-            arrs["bucket_offsets"][:, :self.B].astype(np.int64), device=dev)
-        self.bucket_lens = torch.as_tensor(arrs["bucket_lens"], device=dev)
-        self.tables = score_tables(self.max_dist, dev)
+        (self.entries, self.occ, self.bucket_offsets,
+         self.bucket_lens) = aligned_lists(index, self.device, self.chunk)
+        self.tables = score_tables(self.max_dist, self.device)
         # per-page compaction populations (n_single, n_mslot, n_scell,
         # n_sresc, n_mcell, n_rescan, 0) recorded by every drain — the
         # cap-tuning instrumentation

@@ -95,9 +95,7 @@ def select_auto_engine(index, device) -> str:
 # engines of the JAX package that this package does not have yet, and the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "dense": "queue 1, item 7 (the dense engine)",
     "sharded": "queue 1, item 8 (sharded scoring)",
-    "pallas": "queue 1, item 10 (the scan-style engine)",
 }
 
 
@@ -387,22 +385,36 @@ class Pipeline:
             # compaction -> sparse f32 scoring) wrapped in the hybrid's
             # exact near-threshold re-score for verdict exactness on all
             # five methods. A bucket deeper than the moment decoder's 2^22
-            # rank bound raises: the JAX package falls back to its dense
-            # engine there, which is not ported yet.
+            # rank bound (extreme low-complexity skew) falls back to the
+            # dense engine, which has no depth bound.
             from ..ops.hybrid import HybridIsslScorer
             from ..ops.issl_compact import CompactIsslScorer
 
+            fast = None
             try:
                 fast = CompactIsslScorer(index, max_dist=md,
                                          device=self.device)
             except ValueError as e:
-                raise ValueError(
-                    f"compact engine unavailable ({e}); its fallback, the "
-                    f"dense engine, is not ported yet (ROADMAP "
-                    f"{_NOT_PORTED['dense']})") from e
+                printer(f"compact engine unavailable ({e}); using the "
+                        "dense engine")
             self._issl_scorer = HybridIsslScorer(
                 index, max_dist=md, method=method, threshold=threshold,
-                dense=fast)
+                dense=fast, device=self.device)
+        elif engine == "dense":
+            # dense full scan with the exact re-score of near-threshold
+            # queries: verdict-exact for every method
+            from ..ops.hybrid import HybridIsslScorer
+
+            self._issl_scorer = HybridIsslScorer(
+                index, max_dist=md, method=method, threshold=threshold,
+                device=self.device)
+        elif engine == "pallas":
+            # the scan-style full scan (the JAX package's Pallas engine),
+            # with no re-score, as there
+            from ..ops.issl_scan import ScanIsslScorer
+
+            self._issl_scorer = ScanIsslScorer(index, max_dist=md,
+                                               device=self.device)
         elif engine == "xla":
             # the order-exact general engine with the early-exit
             # emulation: f64 on the CPU, TwoSum-compensated f32 on the GPU

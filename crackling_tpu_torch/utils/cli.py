@@ -1,8 +1,9 @@
 """Console entry points of the PyTorch package.
 
 ``Crackling`` (the pipeline), ``scoreOfftargets`` (isslScoreOfftargets'
-CLI and stdout format), ``extractOfftargets`` and ``createIsslIndex``
-(isslCreateIndex), as in crackling_tpu/utils/cli.py. The scoring entry
+CLI and stdout format), ``extractOfftargets``, ``createIsslIndex``
+(isslCreateIndex), ``trainModel`` (sgRNAScorer 2.0's SVM) and
+``countHitTranscripts``, as in crackling_tpu/utils/cli.py. The scoring entry
 points run on ``cuda``; ``CRACKLING_PLATFORM=cpu`` asks for the CPU.
 """
 
@@ -142,3 +143,19 @@ def main_score_offtargets(argv=None):
         c_s = "%f" % c if calc_cfd else "-1"
         out.append(f"{s}\t{m_s}\t{c_s}\n")
     sys.stdout.write("".join(out))
+
+
+def main_train_model(argv=None):
+    """``trainModel`` (reference trainModel.py): retrains the sgRNAScorer
+    2.0 SVM, by default from the shipped data."""
+    from ..sgrnascorer import main_train
+
+    main_train(argv)
+
+
+def main_count_hit_transcripts(argv=None):
+    """``countHitTranscripts`` (reference countHitTranscripts.py): counts
+    the annotated transcripts each guide of a Crackling CSV hits."""
+    from ..pipeline.transcripts import main as transcripts_main
+
+    transcripts_main(argv)

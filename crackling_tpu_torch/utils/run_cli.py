@@ -14,6 +14,8 @@ COMMANDS = {
     "extractOfftargets": cli.main_extract_offtargets,
     "createIsslIndex": cli.main_create_issl_index,
     "scoreOfftargets": cli.main_score_offtargets,
+    "trainModel": cli.main_train_model,
+    "countHitTranscripts": cli.main_count_hit_transcripts,
 }
 
 

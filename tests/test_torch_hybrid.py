@@ -1,4 +1,6 @@
-"""The PyTorch hybrid (compact + exact re-score) against exact scoring.
+"""The PyTorch hybrid (fast full scan + exact re-score) against exact
+scoring, with either fast engine: the default, dense (band 1.0), and
+compact (band 0.05), passed in as the pipeline passes it.
 
 For all five methods the hybrid's verdicts must equal the reference's
 (its early exit included), and every query it re-scores must carry the
@@ -19,6 +21,8 @@ from crackling_tpu.codec import sigs_to_strings
 from crackling_tpu.ops.oracle import score_exact
 from crackling_tpu_torch.ops import hybrid
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
 from crackling_tpu_torch.ops.issl_flat import IsslScorer
 from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.pipeline.run import verdicts
@@ -44,15 +48,36 @@ def world(data):  # noqa: F811
 # no-toolchain link)
 CHAINS = [("mxu", None), ("mxu", np.inf), ("native", None),
           ("native", np.inf), ("flat", np.inf)]
+FAST = ["dense", "compact"]
+KW = dict(query_page=64, chunk=1024)
 
 
+def _hybrid(pidx, fast, **kw):
+    """The hybrid over its default fast engine (dense) or over the compact
+    engine, passed in as the pipeline passes it."""
+    dense = (CompactIsslScorer(pidx, max_dist=4, device="cpu", **KW)
+             if fast == "compact" else None)
+    return HybridIsslScorer(pidx, max_dist=4, device="cpu", dense=dense,
+                            **kw, **({} if dense else KW))
+
+
+def test_default_fast_engine_is_dense(world):
+    index, _ = world
+    hy = HybridIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
+    assert isinstance(hy.dense, DenseIsslScorer)
+    assert hy.band == DenseIsslScorer.score_band == 1.0
+    assert hy.dense.query_page == 64 and hy.dense.chunk == 1024
+    assert _hybrid(hy.index, "compact").band == 0.05
+
+
+@pytest.mark.parametrize("fast", FAST)
 @pytest.mark.parametrize("exact,band", CHAINS)
 @pytest.mark.parametrize("method,thr", METHODS)
-def test_hybrid_matches_exact_emulation(world, method, thr, exact, band):
+def test_hybrid_matches_exact_emulation(world, method, thr, exact, band,
+                                        fast):
     index, queries = world
-    hy = HybridIsslScorer(port_index(index), max_dist=4, method=method,
-                          threshold=thr, band=band, device="cpu",
-                          query_page=64, chunk=1024)
+    hy = _hybrid(port_index(index), fast, method=method, threshold=thr,
+                 band=band)
     if exact == "native":
         hy._exact = hybrid._NativeExact(hy.index, 4, thr, method)
     elif exact == "flat":
@@ -77,9 +102,10 @@ def test_hybrid_matches_exact_emulation(world, method, thr, exact, band):
                 ["%f" % x for x in b[near]]
 
 
+@pytest.mark.parametrize("fast", FAST)
 @pytest.mark.parametrize("method,thr", METHODS)
 def test_hybrid_matches_reference_binary(world, ref_bins, tmp_path, method,
-                                         thr):
+                                         thr, fast):
     from crackling_tpu_torch.index import write_reference_issl
 
     index, queries = world
@@ -94,8 +120,7 @@ def test_hybrid_matches_reference_binary(world, ref_bins, tmp_path, method,
     rows = [line.split("\t") for line in out.stdout.strip().split("\n")]
     ref_mit = np.array([float(r[1]) for r in rows])
     ref_cfd = np.array([float(r[2]) for r in rows])
-    hy = HybridIsslScorer(pidx, max_dist=4, method=method, threshold=thr,
-                          device="cpu", query_page=64, chunk=1024)
+    hy = _hybrid(pidx, fast, method=method, threshold=thr)
     mit, cfd = hy.score(queries)
     np.testing.assert_array_equal(verdicts(mit, cfd, thr, method),
                                   verdicts(ref_mit, ref_cfd, thr, method))

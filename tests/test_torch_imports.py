@@ -30,6 +30,8 @@ leaked = sorted(k for k in sys.modules
 import numpy as np
 from crackling_tpu_torch.index import build_index
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
+from crackling_tpu_torch.ops.issl_scan import ScanIsslScorer
 from crackling_tpu_torch.ops.issl_flat import IsslScorer
 from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
@@ -41,6 +43,8 @@ if not torch.cuda.is_available():
     class _CM:
         _parser = None
     for name, make in (("compact", lambda: CompactIsslScorer(index)),
+                       ("dense", lambda: DenseIsslScorer(index)),
+                       ("scan", lambda: ScanIsslScorer(index)),
                        ("mxu", lambda: MxuIsslScorer(index)),
                        ("flat", lambda: IsslScorer(index)),
                        ("hybrid", lambda: HybridIsslScorer(index)),
@@ -65,7 +69,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = _probe()
     # every module of the port was imported ...
     for mod in ("issl_compact", "compact_finder", "issl_mxu", "mxu_finder",
-                "issl_flat", "kernel_build"):
+                "issl_flat", "kernel_build", "fullscan", "issl_dense",
+                "issl_scan"):
         assert f"crackling_tpu_torch.ops.{mod}" in res["mods"]
     assert "crackling_tpu_torch.utils.cli" in res["mods"]
     # ... and none of them brought in JAX or the JAX package
@@ -74,6 +79,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     import torch
 
     if not torch.cuda.is_available():
-        assert res["raised"] == {"compact": True, "mxu": True,
+        assert res["raised"] == {"compact": True, "dense": True,
+                                 "scan": True, "mxu": True,
                                  "flat": True, "hybrid": True,
                                  "pipeline": True}

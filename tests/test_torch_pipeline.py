@@ -14,9 +14,10 @@ through its CLI entry point with ``CRACKLING_PLATFORM=cpu``, once per
   included; scores within 1e-9 (it sums each query's hits in the
   reference's order, the flat engine per round, so the last f64 bits may
   differ before ``%f`` rounds them).
-* ``compact`` is the hybrid compact engine: every column but the two
-  scores identical, verdicts included; scores within 1e-3 (f32 full scan
-  vs f64).
+* ``compact`` and ``dense`` are the hybrid over the compact and the
+  dense engine, ``pallas`` the scan-style engine alone: every column but
+  the two scores identical, verdicts included; scores within 1e-3 (f32
+  per-hit terms of a full scan vs f64).
 """
 
 import csv
@@ -30,8 +31,9 @@ import torch
 from test_pipeline import mini_world  # noqa: F401  (shared fixture)
 
 SCORE_COLS = ("mitOfftargetscore", "cfdOfftargetscore")
-ENGINES = ["auto", "exact", "compact"]
-SCORE_TOL = {"auto": 0.0, "exact": 1e-9, "compact": 1e-3}
+ENGINES = ["auto", "exact", "compact", "dense", "pallas"]
+SCORE_TOL = {"auto": 0.0, "exact": 1e-9, "compact": 1e-3, "dense": 1e-3,
+             "pallas": 1e-3}
 
 
 def _config(mini_world, outdir, engine=None):  # noqa: F811
@@ -139,3 +141,33 @@ def test_mxu_falls_back_to_xla(mini_world, tmp_path, monkeypatch,  # noqa: F811
     assert isinstance(scorer, IsslScorer)
     assert scorer.dtype == torch.float64 and scorer.method == "and"
     assert "MXU engine unavailable" in capsys.readouterr().out
+
+
+def test_compact_falls_back_to_dense(mini_world, tmp_path,  # noqa: F811
+                                     monkeypatch, capsys):
+    """``engine = compact`` on an index past the compact engine's rank
+    bound (here: the bound lowered below the mini world's buckets) logs
+    the JAX package's line and builds the hybrid over the dense engine."""
+    import crackling_tpu_torch.ops.issl_compact as port_compact
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline
+
+    cm = ConfigManager(str(_config(mini_world, tmp_path / "out",
+                                   "compact")), lambda m: None)
+    assert cm.isConfigured()
+    monkeypatch.setattr(port_compact, "RANK_BOUND", 1)
+    scorer = Pipeline(cm, device="cpu")._get_issl_scorer()
+    assert isinstance(scorer, HybridIsslScorer)
+    assert isinstance(scorer.dense, DenseIsslScorer)
+    assert scorer.band == 1.0 and scorer.dense.device.type == "cpu"
+    out = capsys.readouterr().out
+    assert "compact engine unavailable" in out
+    assert "using the dense engine" in out
+
+
+def test_only_sharded_is_not_ported():
+    from crackling_tpu_torch.pipeline.run import _NOT_PORTED
+
+    assert set(_NOT_PORTED) == {"sharded"}
