@@ -6,9 +6,10 @@
 Needs one CUDA GPU, ``nvcc`` (PATH or /usr/local/cuda/bin) and ``g++``.
 Phases, each fatal on failure:
 
-1. build the three kernel libraries (nvcc, sm_90a: the compact finder,
-   the neighbour finder and the full-scan scorers) and the native host
-   library (g++) from the package's sources, in parallel; print the card;
+1. build the four kernel libraries (nvcc, sm_90a: the compact finder,
+   the one-hot compact finder, the neighbour finder and the full-scan
+   scorers) and the native host library (g++) from the package's
+   sources, in parallel; print the card;
 2. hold the compact finder kernel against its plain PyTorch version,
    cell for cell (exact), on a small index, a skewed index whose deep
    bucket turns the superchunk level on, and 16 buckets of the full page;
@@ -19,6 +20,16 @@ Phases, each fatal on failure:
    exact host scorer (sums within rtol 1e-4, hybrid verdicts identical
    for ``and``); then profile one warm page (device busy share, per-span
    device time);
+3b. hold the one-hot compact finder kernel (tensor-core int8 ``mma``) against
+    its plain version, cell for cell (exact), on the small index, the
+    skewed index and 16 buckets of the 65,536-query page, then against
+    the packed compact finder kernel on the whole page (every cell
+    equal);
+3c. the compact engine with the one-hot finder on a 65,536-query and a
+    4,096-query page of the 27 Mbp index: the one-hot and the packed
+    finder kernels timed in turns on the same page (CUDA events), the
+    one-hot finder's bound, the page wall time and guides/s with each
+    finder, the planes' bytes and build time;
 4. hold the neighbour finder kernel (the MXU engine's) against its plain
    version, cell for cell (exact), on the small index, the skewed index
    and 16 buckets of a 32,768-query page of the 27 Mbp index;
@@ -55,13 +66,14 @@ Phases, each fatal on failure:
     own band and with an infinite one, which re-scores every query
     through the neighbour finder on the card;
 11. ``Crackling -c config.ini`` through its CLI entry point on the GPU
-    four times, every kernel's launch counter and plain-call counter
+    five times, every kernel's launch counter and plain-call counter
     reset just before each run and read just after: ``engine = auto``
-    (the compact finder must have launched), then ``exact`` (the
-    neighbour finder), ``dense`` (``dense_scan``) and ``pallas``
-    (``bucket_scan``) on the same files, with no plain version run in
-    any; each run's ``passedOffTargetScore`` column must equal the
-    ``auto`` run's row by row;
+    (the compact finder must have launched), ``auto`` with
+    ``CRACKLING_TPU_COMPACT_ONEHOT=1`` (the one-hot finder, and not the
+    packed one), then ``exact`` (the neighbour finder), ``dense``
+    (``dense_scan``) and ``pallas`` (``bucket_scan``) on the same files,
+    with no plain version run in any; each run's ``passedOffTargetScore``
+    column must equal the ``auto`` run's row by row;
 12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
     2,048-query file of the 27 Mbp index: verdicts identical to the
     native exact scorer's, scores within its f32 tier (``SCORE_RTOL``);
@@ -101,6 +113,18 @@ FINDER_OPS_PER_PAIR = 12
 # ... and of the neighbour finder's: the same and a subtract, for the
 # 1..max_dist range test
 MXU_OPS_PER_PAIR = 13
+# the one-hot finder's bound: per pair, 2 x 96 int8 operations on the
+# tensor cores (the distance product, K = 80 lanes padded to 96) and ~2
+# epilogue operations (a compare and its share of the vote's ORs); the
+# planes at 80 B per entry
+H100_INT8_OPS_PER_S = 1979e12
+ONEHOT_LANES = 80
+ONEHOT_K = 96
+ONEHOT_EPILOGUE_OPS_PER_PAIR = 2
+# the one-hot kernel's entry tile (csrc/compact_onehot.cu kTileRows)
+ONEHOT_TILE_ROWS = 256
+# the small page of the one-hot comparison
+SMALL_PAGE = 4096
 # ... and of the full-scan scorers': the compact finder's predicate (the
 # dedup and the terms run only on the rare pairs within max_dist)
 FULLSCAN_OPS_PER_PAIR = FINDER_OPS_PER_PAIR
@@ -293,7 +317,8 @@ def phase_build():
     from crackling_tpu_torch import native
     from crackling_tpu_torch.ops.kernel_build import build_library
 
-    sources = ("compact_finder.cu", "mxu_finder.cu", "fullscan.cu")
+    sources = ("compact_finder.cu", "compact_onehot.cu", "mxu_finder.cu",
+               "fullscan.cu")
     with ThreadPoolExecutor(len(sources) + 1) as ex:
         kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
@@ -334,14 +359,8 @@ def compare_finder(scorer, q, qsp, blen=None):
     got = compact_finder(*args, **kw)
     want = compact_finder_plain(*args, **kw)
     sync(q.device)
-    err = 0
-    for name, a, b in zip(("cnt", "rsum", "rmin", "rmax"), got[:4],
-                          want[:4]):
-        diff = int((a.long() - b.long()).abs().max())
-        err = max(err, diff)
-        if diff:
-            fail(f"finder kernel disagrees with its plain version on {name}"
-                 f" ({int((a != b).sum())} cells)")
+    err = finder_diff("finder kernel disagrees with its plain version", got,
+                      want)
     return err, int(want.cnt[:, :, -1].sum())
 
 
@@ -521,6 +540,191 @@ def phase_profile(dev, run, prefix):
           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
           "kernel_launches": len(kernels), "span_device_ms": spans,
           "top_ops_device_ms": [[k, c, ms] for ms, c, k in top]})
+
+
+def finder_diff(what, got, want):
+    """Fail unless two FinderOuts agree in every cell; their largest
+    difference (0)."""
+    err = 0
+    for name, a, b in zip(("cnt", "rsum", "rmin", "rmax"), got[:4],
+                          want[:4]):
+        diff = int((a.long() - b.long()).abs().max())
+        err = max(err, diff)
+        if diff:
+            fail(f"{what} on {name} ({int((a != b).sum())} cells)")
+    return err
+
+
+def onehot_args(scorer, q, qsp, blen=None):
+    return ((scorer.planes, scorer.bucket_offsets,
+             scorer.bucket_lens if blen is None else blen, q, qsp),
+            dict(chunk=scorer.chunk, nchmax=scorer._nchmax,
+                 superchunk=scorer.superchunk, max_dist=scorer.max_dist))
+
+
+def compare_onehot(scorer, q, qsp, blen=None):
+    """One-hot finder kernel vs its plain version on the same device
+    tensors; exact."""
+    from crackling_tpu_torch.ops.compact_onehot import (
+        compact_finder_onehot, compact_finder_onehot_plain)
+
+    args, kw = onehot_args(scorer, q, qsp, blen)
+    got = compact_finder_onehot(*args, **kw)
+    want = compact_finder_onehot_plain(*args, **kw)
+    sync(q.device)
+    err = finder_diff("one-hot finder kernel disagrees with its plain "
+                      "version", got, want)
+    return err, int(want.cnt[:, :, -1].sum())
+
+
+def onehot_scorer(index, dev, **kw):
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+
+    sc = CompactIsslScorer(index, max_dist=4, device=dev, onehot=True, **kw)
+    if not sc.onehot:
+        fail("CompactIsslScorer(onehot=True) did not take the one-hot finder")
+    return sc
+
+
+def phase_onehot_kernel_vs_plain(dev, bench_scorer, bench_queries):
+    """The one-hot kernel against its plain version (small, skewed, 16
+    buckets of the page), then against the packed kernel on the whole
+    page; returns the largest difference (0)."""
+    from crackling_tpu_torch.ops.compact_finder import compact_finder
+    from crackling_tpu_torch.ops.compact_onehot import compact_finder_onehot
+
+    errs = []
+    index, queries = small_world()
+    sc = onehot_scorer(index, dev, chunk=1024)
+    e, hits = compare_onehot(sc, *finder_inputs(sc, queries))
+    errs.append(e)
+    emit({"phase": "onehot_kernel_vs_plain", "input": "small", "hits": hits,
+          "max_abs_err": e})
+
+    index, queries = skewed_world()
+    sc = onehot_scorer(index, dev, chunk=1024)
+    if sc.superchunk <= 0:
+        fail(f"skewed index did not turn the superchunk level on "
+             f"(nchmax {sc._nchmax})")
+    e, hits = compare_onehot(sc, *finder_inputs(sc, queries))
+    errs.append(e)
+    emit({"phase": "onehot_kernel_vs_plain", "input": "skewed",
+          "nchmax": sc._nchmax, "superchunk": sc.superchunk, "hits": hits,
+          "max_abs_err": e})
+    del sc
+
+    # 8 buckets each of slices 0 and 4 of the full page: other buckets
+    # are given length 0, so both versions skip them
+    q, qsp = finder_inputs(bench_scorer, bench_queries)
+    blen = bench_scorer.bucket_lens.clone()
+    keep = blen.new_zeros(blen.shape, dtype=bool)
+    keep[0, 40:48] = True
+    keep[-1, 200:208] = True
+    blen[~keep] = 0
+    e, hits = compare_onehot(bench_scorer, q, qsp, blen)
+    errs.append(e)
+    emit({"phase": "onehot_kernel_vs_plain", "input": "bench page, 16 buckets",
+          "qb": qsp.shape[2], "hits": hits, "max_abs_err": e})
+
+    # the whole page: the one-hot kernel against the packed kernel
+    args, kw = onehot_args(bench_scorer, q, qsp)
+    got = compact_finder_onehot(*args, **kw)
+    want = compact_finder(bench_scorer.entries, *args[1:], **kw)
+    sync(dev)
+    e = finder_diff("one-hot finder kernel disagrees with the packed finder "
+                    "kernel", got, want)
+    errs.append(e)
+    emit({"phase": "onehot_kernel_vs_plain",
+          "input": "bench page vs the packed kernel", "qb": qsp.shape[2],
+          "cells": got.cnt.numel(), "hits": int(want.cnt[:, :, -1].sum()),
+          "max_abs_err": e})
+    return max(errs)
+
+
+def onehot_bound_ms(scorer, q, qsp, C):
+    """Least time for the one-hot finder's work on this page: the largest
+    of its tensor operations over the int8 peak, its epilogue operations
+    over the ALU peak (both over live (slot, entry) pairs) and its bytes over
+    HBM bandwidth: the plane rows the kernel streams (each bucket with a
+    live slot, in whole entry tiles, once), the plan, the queries, the
+    offsets and the output cells."""
+    n = q.numel()
+    qcount = ((qsp >= 0) & (qsp < n)).sum(-1).long()
+    blen = scorer.bucket_lens.long()
+    pairs = int((blen * qcount).sum())
+    S, B, qb = qsp.shape
+    tiles = -(-blen // ONEHOT_TILE_ROWS) * (qcount > 0)
+    nbytes = (int(tiles.sum()) * ONEHOT_TILE_ROWS * ONEHOT_LANES
+              + qsp.numel() * 4 + n * 8 + S * B * 12 + S * B * C * qb * 20)
+    terms = {"tensor": pairs * 2 * ONEHOT_K / H100_INT8_OPS_PER_S,
+             "operations": pairs * ONEHOT_EPILOGUE_OPS_PER_PAIR
+             / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by, pairs, {k: v * 1e3 for k, v in terms.items()}
+
+
+def phase_onehot_page(dev, sc, queries, size, card):
+    """The compact engine with the one-hot finder on a ``size``-query page:
+    both finder kernels timed in turns on the same page, the one-hot
+    finder's bound and plain time, the page with each finder, the planes'
+    bytes and build time."""
+    from crackling_tpu_torch.ops.compact_finder import compact_finder
+    from crackling_tpu_torch.ops.compact_onehot import (
+        compact_finder_onehot, compact_finder_onehot_plain, onehot_planes)
+    from crackling_tpu_torch.ops.issl_compact import normalize_caps
+
+    page = queries[:size]
+    q, qsp = finder_inputs(sc, page)
+    args, kw = onehot_args(sc, q, qsp)
+    ms = {"packed": [], "onehot": []}
+    for which in ("packed", "onehot", "onehot", "packed"):
+        if which == "onehot":
+            ms[which].append(timed_ms(
+                lambda: compact_finder_onehot(*args, **kw), 3, dev))
+        else:
+            ms[which].append(timed_ms(
+                lambda: compact_finder(sc.entries, *args[1:], **kw), 3, dev))
+    C = compact_finder_onehot(*args, **kw).cnt.shape[2]
+    bound_ms, bound_by, pairs, terms = onehot_bound_ms(sc, q, qsp, C)
+    sync(dev)
+    t = time.perf_counter()
+    compact_finder_onehot_plain(*args, **kw)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    build_ms = float(np.median(host_walls(
+        lambda: onehot_planes(sc.entries, sc.index.seq_length), dev))) * 1e3
+
+    # the page program with each finder, each from freshly tuned caps
+    walls, sums = {}, {}
+    for onehot in (False, True, True, False):
+        which = "onehot" if onehot else "packed"
+        sc.onehot = onehot
+        sc._set_caps(normalize_caps(None, 1 << 17))
+        sc._tuned = False
+        sums[which] = sc.score_sums(page)                  # tunes the caps
+        walls.setdefault(which, []).extend(
+            host_walls(lambda: sc.score_sums(page), dev, reps=2))
+    sc.onehot = True
+    # the same finder cells decode to the same hits; only the order of
+    # the f64 sums (CUDA index_add_) may differ
+    for a, b in zip(sums["packed"], sums["onehot"]):
+        if not np.allclose(a, b, rtol=1e-12, atol=1e-9):
+            fail("the compact page's sums differ between the packed and "
+                 "the one-hot finder")
+    emit({"phase": "onehot_page", "card": card, "device": str(dev),
+          "queries": int(page.shape[0]), "qb": int(qsp.shape[2]),
+          "pairs": pairs, "onehot_finder_ms": ms["onehot"],
+          "packed_finder_ms": ms["packed"], "onehot_plain_ms": plain_ms,
+          "onehot_bound_ms": bound_ms, "onehot_bound_by": bound_by,
+          "onehot_bound_terms_ms": terms,
+          "page_wall_s": walls,
+          "guides_per_s": {k: page.shape[0] / float(np.median(v))
+                           for k, v in walls.items()},
+          "plane_bytes": sc.planes.numel(), "plane_build_ms": build_ms})
+    return dict(ms=float(np.mean(ms["onehot"])), plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bound_by == "bytes" else "operations")
 
 
 def compare_mxu(eng, q, qsp, blen=None):
@@ -1213,27 +1417,36 @@ def torch_is_cuda(dev):
     return torch.device(dev).type == "cuda"
 
 
-def phase_pipeline(dev, files, engine):
-    """``Crackling -c`` with ``[tpu] engine = <engine>``. Every kernel's
+def phase_pipeline(dev, files, engine, onehot=False):
+    """``Crackling -c`` with ``[tpu] engine = <engine>`` (and, with
+    ``onehot``, CRACKLING_TPU_COMPACT_ONEHOT=1 for the run). Every kernel's
     launch count and its plain version's call count are set to 0 just
     before the run and read just after: the kernel that engine runs (the
-    compact finder for ``auto``, the neighbour finder for ``exact``,
-    ``dense_scan`` for ``dense``, ``bucket_scan`` for ``pallas``) must
-    have launched, and no plain version may have run. Returns (launches
-    of that kernel, rows)."""
+    compact finder for ``auto``, the one-hot finder for ``auto`` with the
+    variable, the neighbour finder for ``exact``, ``dense_scan`` for
+    ``dense``, ``bucket_scan`` for ``pallas``) must have launched, and no
+    plain version may have run; with the variable, the packed compact
+    finder must not have launched. Returns (launches of that kernel,
+    rows)."""
     from crackling_tpu_torch.constants import GUIDE_COLUMNS
     from crackling_tpu_torch.ops import compact_finder as cf
+    from crackling_tpu_torch.ops import compact_onehot as co
     from crackling_tpu_torch.ops import fullscan as fs
     from crackling_tpu_torch.ops import mxu_finder as mf
     from crackling_tpu_torch.utils import cli
 
     kernels = {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
+               "compact_finder_onehot": (co.compact_finder_onehot,
+                                         co.compact_finder_onehot_plain),
                "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
                "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
                "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
     main = {"auto": "compact_finder", "exact": "mxu_finder",
             "dense": "dense_scan", "pallas": "bucket_scan"}[engine]
-    out = CACHE / f"pipeline_{engine}"
+    if onehot:
+        main = "compact_finder_onehot"
+    name = f"{engine}_onehot" if onehot else engine
+    out = CACHE / f"pipeline_{name}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     cfg = write_config(out, files, engine)
@@ -1242,20 +1455,28 @@ def phase_pipeline(dev, files, engine):
         os.environ.pop("CRACKLING_PLATFORM", None)
     else:
         os.environ["CRACKLING_PLATFORM"] = "cpu"
+    if onehot:
+        os.environ["CRACKLING_TPU_COMPACT_ONEHOT"] = "1"
     # the main path's run: counts start at 0 just before, are read after
     for kernel, plain in kernels.values():
         kernel.launches = 0
         plain.calls = 0
     t = time.perf_counter()
-    cli.main_crackling(["-c", str(cfg)])
-    sync(dev)
+    try:
+        cli.main_crackling(["-c", str(cfg)])
+        sync(dev)
+    finally:
+        os.environ.pop("CRACKLING_TPU_COMPACT_ONEHOT", None)
     wall = time.perf_counter() - t
     launches = {k: kp[0].launches for k, kp in kernels.items()}
     plain_calls = {k: kp[1].calls for k, kp in kernels.items()}
     if on_gpu:
         if launches[main] <= 0:
-            fail(f"Crackling (engine = {engine}) ran without launching "
+            fail(f"Crackling (engine = {name}) ran without launching "
                  f"{main}")
+        if onehot and launches["compact_finder"]:
+            fail("Crackling with CRACKLING_TPU_COMPACT_ONEHOT=1 launched the "
+                 "packed compact finder")
         if any(plain_calls.values()):
             fail(f"a plain kernel version ran on the GPU path: "
                  f"{plain_calls}")
@@ -1276,7 +1497,7 @@ def phase_pipeline(dev, files, engine):
             if not 0.0 < float(r[col[c]]) <= 100.0:
                 fail(f"{c} out of (0, 100]: {r[col[c]]}")
     metrics = json.loads((out / "smoke-guides.txt.metrics.json").read_text())
-    emit({"phase": "pipeline", "engine": engine, "guides": len(rows) - 1,
+    emit({"phase": "pipeline", "engine": name, "guides": len(rows) - 1,
           "scored": len(scored),
           "accepted": sum(r[col["passedOffTargetScore"]] == "1"
                           for r in scored),
@@ -1376,6 +1597,13 @@ def main():
     del scorer
     torch.cuda.empty_cache()
 
+    oh = onehot_scorer(index, dev)
+    onehot_err = phase_onehot_kernel_vs_plain(dev, oh, queries)
+    onehot = phase_onehot_page(dev, oh, queries, N_QUERIES, card)
+    phase_onehot_page(dev, oh, queries, SMALL_PAGE, card)
+    del oh
+    torch.cuda.empty_cache()
+
     page = queries[:MXU_PAGE]
     eng = MxuIsslScorer(index, max_dist=4, method="and", threshold=75.0,
                         device=dev)
@@ -1402,6 +1630,8 @@ def main():
         phase_hybrid_methods(dev, fast)
 
     compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
+    onehot["launches"], rows = phase_pipeline(dev, files, "auto", onehot=True)
+    same_verdicts(rows_auto, rows, "auto with the one-hot finder")
     mxu["launches"], rows = phase_pipeline(dev, files, "exact")
     same_verdicts(rows_auto, rows, "exact")
     dense_stats["launches"], rows = phase_pipeline(dev, files, "dense")
@@ -1418,6 +1648,11 @@ def main():
          "replaces": "crackling_tpu/ops/issl_compact.py:247",
          "max_abs_err": compact_err, "max_rel_err": compact_err,
          "library_ms": None, **compact},
+        {"name": "compact_finder_onehot", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/compact_onehot.cu",
+         "replaces": "crackling_tpu/ops/issl_compact.py:350",
+         "max_abs_err": onehot_err, "max_rel_err": onehot_err,
+         "library_ms": None, **onehot},
         {"name": "mxu_finder", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/mxu_finder.cu",
          "replaces": "crackling_tpu/ops/issl_mxu.py:67",

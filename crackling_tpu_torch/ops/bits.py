@@ -86,6 +86,18 @@ def earlier_slice_clean(c40: torch.Tensor, s) -> torch.Tensor:
     return ((xb - 0x01010101) & ~xb & 0x80808080) != 0
 
 
+def earlier_slice_clean_mask(mask: torch.Tensor, s) -> torch.Tensor:
+    """The same dedup test on the 20-bit position mask (bit ``p`` set iff
+    position ``p`` mismatches): True where nibble ``s' < s`` of the mask
+    (slice ``s'``'s four positions) is zero. The SWAR zero-nibble test of
+    the JAX one-hot finder (crackling_tpu/ops/issl_compact.py:410-414)."""
+    if not torch.is_tensor(s):
+        s = torch.tensor(int(s), dtype=torch.int64, device=mask.device)
+    earlier = (torch.ones_like(s) << (4 * s)) - 1        # nibbles 0..s-1
+    x = (mask & _M32) | (earlier ^ _M32)
+    return ((x - 0x11111111) & ~x & 0x88888888) != 0
+
+
 def earlier_slice_clean_raw(x: torch.Tensor, s, width: int,
                             slices: int) -> torch.Tensor:
     """The same dedup test at any slice width, on the raw XOR ``x`` of

@@ -79,9 +79,13 @@ def _bind(lib):
 KERNEL = KernelLibrary("compact_finder.cu", _bind)
 
 
-def _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist):
+def check_inputs(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist,
+                 lists_name="entries", lists_dtype=torch.int64,
+                 lists_dim=2):
+    """Raise on inputs the finders do not take; ``entries`` is the
+    per-slice input, named and typed by the ``lists_*`` arguments."""
     dev = entries.device
-    for name, t, dt, nd in (("entries", entries, torch.int64, 2),
+    for name, t, dt, nd in ((lists_name, entries, lists_dtype, lists_dim),
                             ("boff", boff, torch.int64, 2),
                             ("blen", blen, torch.int32, 2),
                             ("q_sig", q_sig, torch.int64, 1),
@@ -96,7 +100,7 @@ def _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist):
     S, B, qb = qsp.shape
     if entries.shape[0] != S or boff.shape != (S, B) \
             or blen.shape != (S, B):
-        raise ValueError("entries/boff/blen/qsp disagree on (S, B)")
+        raise ValueError(f"{lists_name}/boff/blen/qsp disagree on (S, B)")
     if not 1 <= S <= 5:
         raise ValueError("the finder takes 1..5 slices (l=20, w=8)")
     if chunk % KERNEL_TILE or nchmax < 1 or qb < 1:
@@ -108,7 +112,7 @@ def _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist):
         raise ValueError("query page too large for int32 slot ids")
 
 
-def _alloc(S, B, qb, nchmax, nsc, device):
+def alloc_out(S, B, qb, nchmax, nsc, device):
     shape = (S, B, nchmax + nsc + 1, qb)
     return FinderOut(torch.empty(shape, dtype=torch.int32, device=device),
                      torch.empty(shape, dtype=torch.int64, device=device),
@@ -129,7 +133,7 @@ def compact_finder(entries: torch.Tensor, boff: torch.Tensor,
     (S, B, qb) int32 slot plan (query id per slot, ``n`` = padding).
     A CUDA tensor launches the kernel (counted in ``compact_finder.
     launches``); a CPU tensor runs :func:`compact_finder_plain`."""
-    _check(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist)
+    check_inputs(entries, boff, blen, q_sig, qsp, chunk, nchmax, max_dist)
     if entries.device.type == "cpu":
         return compact_finder_plain(entries, boff, blen, q_sig, qsp,
                                     chunk=chunk, nchmax=nchmax,
@@ -140,7 +144,7 @@ def compact_finder(entries: torch.Tensor, boff: torch.Tensor,
     lib = KERNEL.get()
     S, B, qb = qsp.shape
     nsc = superchunk_cells(nchmax, superchunk)
-    out = _alloc(S, B, qb, nchmax, nsc, entries.device)
+    out = alloc_out(S, B, qb, nchmax, nsc, entries.device)
     stream = torch.cuda.current_stream(entries.device).cuda_stream
     rc = lib.crackling_compact_finder(
         entries.data_ptr(), entries.shape[1], boff.data_ptr(),
@@ -234,56 +238,76 @@ def compact_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
     into the chunk cells; superchunk and bucket cells reduce the chunk
     cells."""
     compact_finder_plain.calls += 1
-    dev = entries.device
-    S, B, qb = qsp.shape
-    nsc = superchunk_cells(nchmax, superchunk)
-
-    cells = S * B * qb * nchmax
-    cnt = torch.zeros(cells, dtype=torch.int64, device=dev)
-    rsum = torch.zeros(cells, dtype=torch.int64, device=dev)
-    rmin = torch.full((cells,), RANK_EMPTY, dtype=torch.int64, device=dev)
-    rmax = torch.full((cells,), -1, dtype=torch.int64, device=dev)
+    acc = ChunkMoments(qsp.shape, chunk, nchmax, entries.device)
     for pb in slot_entry_pairs(entries, boff, blen, q_sig, qsp):
         c40 = collapse_pairs((pb.e ^ pb.q) & SIG40)
         hit = ((popcount(c40) <= max_dist)
                & ~earlier_slice_clean(c40, pb.sl))
         h = torch.nonzero(hit).flatten()
-        rh = pb.r[h]
-        cell = pb.slot[h] * nchmax + rh // chunk
-        cnt.index_add_(0, cell, torch.ones_like(rh))
-        rsum.index_add_(0, cell, rh)
-        rmin.scatter_reduce_(0, cell, rh, "amin")
-        rmax.scatter_reduce_(0, cell, rh, "amax")
-
-    # (S*B*qb, nchmax) slot-major -> (S, B, nchmax, qb) cell-major
-    def planes(x):
-        return x.view(S, B, qb, nchmax).permute(0, 1, 3, 2)
-
-    ch = [planes(x) for x in (cnt, rsum, rmin, rmax)]
-    empty = (0, 0, RANK_EMPTY, -1)
-    fold = (torch.sum, torch.sum, torch.amin, torch.amax)
-
-    def reduce_cells(k, width):
-        """The four chunk planes folded over groups of ``width`` chunk
-        cells -> (S, B, k, qb) each (the last group padded with empty
-        cells)."""
-        res = []
-        for x, fill, op in zip(ch, empty, fold):
-            pad = k * width - nchmax
-            if pad:
-                x = torch.cat([x, torch.full((S, B, pad, qb), fill,
-                                             dtype=x.dtype, device=dev)], 2)
-            res.append(op(x.reshape(S, B, k, width, qb), 3))
-        return res
-
-    parts = [ch]
-    if superchunk:
-        parts.append(reduce_cells(nsc, superchunk))
-    parts.append(reduce_cells(1, nchmax))
-    out = [torch.cat([p[i] for p in parts], 2).contiguous()
-           for i in range(4)]
-    return FinderOut(out[0].int(), out[1], out[2].int(), out[3].int(),
-                     nchmax, nsc)
+        acc.add(pb.slot[h], pb.r[h])
+    return acc.finder_out(superchunk)
 
 
 compact_finder_plain.calls = 0
+
+
+class ChunkMoments:
+    """The plain finders' chunk quads, filled hit by hit: one (count, rank
+    sum, min rank, max rank) per (flat slot, chunk)."""
+
+    def __init__(self, plan_shape, chunk: int, nchmax: int, device):
+        self.shape = tuple(plan_shape)             # (S, B, qb)
+        self.chunk = chunk
+        self.nchmax = nchmax
+        cells = self.shape[0] * self.shape[1] * self.shape[2] * nchmax
+        self.cnt = torch.zeros(cells, dtype=torch.int64, device=device)
+        self.rsum = torch.zeros(cells, dtype=torch.int64, device=device)
+        self.rmin = torch.full((cells,), RANK_EMPTY, dtype=torch.int64,
+                               device=device)
+        self.rmax = torch.full((cells,), -1, dtype=torch.int64,
+                               device=device)
+
+    def add(self, slot: torch.Tensor, r: torch.Tensor):
+        """Hits at in-bucket ranks ``r`` of flat slots ``slot``
+        (``(s*B + b)*qb + j``)."""
+        cell = slot * self.nchmax + r // self.chunk
+        self.cnt.index_add_(0, cell, torch.ones_like(r))
+        self.rsum.index_add_(0, cell, r)
+        self.rmin.scatter_reduce_(0, cell, r, "amin")
+        self.rmax.scatter_reduce_(0, cell, r, "amax")
+
+    def finder_out(self, superchunk: int) -> FinderOut:
+        """The finder's output planes: the chunk cells, then the
+        superchunk and bucket cells that reduce them."""
+        S, B, qb = self.shape
+        nchmax = self.nchmax
+        dev = self.cnt.device
+        nsc = superchunk_cells(nchmax, superchunk)
+        # (S*B*qb, nchmax) slot-major -> (S, B, nchmax, qb) cell-major
+        ch = [x.view(S, B, qb, nchmax).permute(0, 1, 3, 2)
+              for x in (self.cnt, self.rsum, self.rmin, self.rmax)]
+        empty = (0, 0, RANK_EMPTY, -1)
+        fold = (torch.sum, torch.sum, torch.amin, torch.amax)
+
+        def reduce_cells(k, width):
+            """The four chunk planes folded over groups of ``width`` chunk
+            cells -> (S, B, k, qb) each (the last group padded with empty
+            cells)."""
+            res = []
+            for x, fill, op in zip(ch, empty, fold):
+                pad = k * width - nchmax
+                if pad:
+                    x = torch.cat([x, torch.full((S, B, pad, qb), fill,
+                                                 dtype=x.dtype, device=dev)],
+                                  2)
+                res.append(op(x.reshape(S, B, k, width, qb), 3))
+            return res
+
+        parts = [ch]
+        if superchunk:
+            parts.append(reduce_cells(nsc, superchunk))
+        parts.append(reduce_cells(1, nchmax))
+        out = [torch.cat([p[i] for p in parts], 2).contiguous()
+               for i in range(4)]
+        return FinderOut(out[0].int(), out[1], out[2].int(), out[3].int(),
+                         nchmax, nsc)

@@ -31,23 +31,29 @@ reference-exact verdicts on all five methods.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..device import resolve_device
+from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex
+from ..pipeline.logger import printer
 from .bits import (SIG40, collapse_pairs, compress_even_bits,
                    earlier_slice_clean, popcount)
 from .compact_finder import FinderOut, compact_finder
+from .compact_onehot import LANES, compact_finder_onehot, onehot_planes
 from .hybrid import plan_query_occupancy
 from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                      cfd_pos_penalties, mit_dense_table)
 
 ALIGN = 1024        # bucket starts are padded to multiples of this
 RANK_BOUND = 1 << 22
+# the JAX engine's one-hot plane budget, over its 128-lane plane bytes
+PLANE_BUDGET = 4 << 30
+JAX_PLANE_LANES = 128
 
 
 def auto_superchunk(nchmax: int) -> int:
@@ -363,7 +369,8 @@ class CompactIsslScorer:
                  caps: tuple | None = None,
                  superchunk: int | None = None,
                  rescan_block: int | None = None,
-                 auto_caps: bool | None = None, device=None):
+                 auto_caps: bool | None = None,
+                 onehot: bool | None = None, device=None):
         self.device = resolve_device(device)
         if index.slice_width != 8 or index.seq_length != 20:
             raise ValueError("compact engine supports l=20, w=8")
@@ -412,10 +419,49 @@ class CompactIsslScorer:
         (self.entries, self.occ, self.bucket_offsets,
          self.bucket_lens) = aligned_lists(index, self.device, self.chunk)
         self.tables = score_tables(self.max_dist, self.device)
+        self.onehot = self._want_onehot(onehot)
+        # the one-hot finder's input, built once; the decode still gathers
+        # the packed entries
+        self.planes = (onehot_planes(self.entries, index.seq_length)
+                       if self.onehot else None)
         # per-page compaction populations (n_single, n_mslot, n_scell,
         # n_sresc, n_mcell, n_rescan, 0) recorded by every drain — the
         # cap-tuning instrumentation
         self.page_stats: list[tuple[int, ...]] = []
+
+    def _want_onehot(self, onehot: bool | None) -> bool:
+        """The finder choice, made as the JAX engine makes it: ``None``
+        reads CRACKLING_TPU_COMPACT_ONEHOT=1 and keeps the packed finder
+        when JAX's plane bytes (S x Epad x 128) pass
+        CRACKLING_TPU_COMPACT_PLANE_BUDGET (default 4 GiB), so one index
+        and one environment pick the same finder in both packages. The
+        port's own planes (80 lanes) must also fit the device's free
+        memory: an explicit ``onehot=True`` that does not fit raises
+        ``ValueError``; the variable's choice keeps the packed finder."""
+        epad = self.entries.shape[1]
+        if onehot is None:
+            if os.environ.get("CRACKLING_TPU_COMPACT_ONEHOT") != "1":
+                return False
+            jax_bytes = self.S * epad * JAX_PLANE_LANES
+            budget = int(os.environ.get("CRACKLING_TPU_COMPACT_PLANE_BUDGET",
+                                        PLANE_BUDGET))
+            if jax_bytes > budget:
+                printer(f"one-hot planes ({jax_bytes:,} B) exceed "
+                        f"CRACKLING_TPU_COMPACT_PLANE_BUDGET ({budget:,} B); "
+                        "using the packed compact finder")
+                return False
+        elif not onehot:
+            return False
+        need = self.S * epad * LANES
+        free = free_bytes(self.device)
+        if need > free:
+            msg = (f"the one-hot planes need {need / 1e9:.2f} GB on "
+                   f"{self.device} but {free / 1e9:.2f} GB are free")
+            if onehot:
+                raise ValueError(msg)
+            printer(f"{msg}; using the packed compact finder")
+            return False
+        return True
 
     # -- the page program --------------------------------------------------
 
@@ -434,7 +480,13 @@ class CompactIsslScorer:
             device=self.device)
 
     def finder(self, q_sig: torch.Tensor, qsp: torch.Tensor) -> FinderOut:
-        """Step 2 of the page program (the kernel on CUDA)."""
+        """Step 2 of the page program (the kernel on CUDA): the one-hot
+        finder when ``self.onehot`` is set, else the packed one."""
+        if self.onehot:
+            return compact_finder_onehot(
+                self.planes, self.bucket_offsets, self.bucket_lens, q_sig,
+                qsp, chunk=self.chunk, nchmax=self._nchmax,
+                superchunk=self.superchunk, max_dist=self.max_dist)
         return compact_finder(self.entries, self.bucket_offsets,
                               self.bucket_lens, q_sig, qsp,
                               chunk=self.chunk, nchmax=self._nchmax,
