@@ -10,9 +10,12 @@ Phases, each fatal on failure:
    the one-hot compact finder, the neighbour finder and the full-scan
    scorers) and the native host library (g++) from the package's
    sources, in parallel; print the card;
-2. hold the compact finder kernel against its plain PyTorch version,
-   cell for cell (exact), on a small index, a skewed index whose deep
-   bucket turns the superchunk level on, and 16 buckets of the full page;
+2. hold the compact finder kernel (int8 tensor-core distance over one-hot
+   rows built from the packed lists) against its plain PyTorch version,
+   cell for cell (exact), on a small index (max-distance 4, 0 and 2, and
+   a plan whose qb is not a multiple of 8), a skewed index whose deep
+   bucket turns the superchunk level on, and 16 buckets of the full page
+   (its own plan, and one whose qb is not a multiple of 8);
 3. score one 65,536-query page at the 27 Mbp operating point (synthetic
    genome, seed 20260816, cached under .cache/chip_smoke/) with the
    compact engine: time the finder and the decode with CUDA events and
@@ -24,12 +27,13 @@ Phases, each fatal on failure:
     its plain version, cell for cell (exact), on the small index, the
     skewed index and 16 buckets of the 65,536-query page, then against
     the packed compact finder kernel on the whole page (every cell
-    equal);
+    equal: two independent tensor-core designs, one over planes, one
+    over packed words);
 3c. the compact engine with the one-hot finder on a 65,536-query and a
     4,096-query page of the 27 Mbp index: the one-hot and the packed
-    finder kernels timed in turns on the same page (CUDA events), the
-    one-hot finder's bound, the page wall time and guides/s with each
-    finder, the planes' bytes and build time;
+    finder kernels timed in turns on the same page (CUDA events), both
+    finders' bounds with their terms, the page wall time and guides/s
+    with each finder, the planes' bytes and build time;
 4. hold the neighbour finder kernel (the MXU engine's) against its plain
    version, cell for cell (exact), on the small index, the skewed index
    and 16 buckets of a 32,768-query page of the 27 Mbp index;
@@ -106,10 +110,21 @@ H100_BYTES_PER_S = 3.35e12
 # the published float32 rate outside the tensor cores: the peak table's
 # only rate for scalar 32-bit ALU work
 H100_ALU_OPS_PER_S = 67e12
-# 32-bit integer operations per (slot, entry) pair of the compact
-# finder's hit test: 2 xor, 2 shift, 2 or, 2 and (pair collapse), 2 popc,
-# add, compare
+# 32-bit integer operations per (slot, entry) pair of a scalar hit test:
+# 2 xor, 2 shift, 2 or, 2 and (pair collapse), 2 popc, add, compare (the
+# packed compact finder's bound before its tensor-core design, kept as its
+# "alu_12op" term for history)
 FINDER_OPS_PER_PAIR = 12
+# the packed compact finder's bound: per live pair 2 x 64 int8 operations
+# on the tensor cores (the 16 positions outside the bucket's slice x 4
+# bases) and half an epilogue operation (a 3-input OR folds two sums);
+# per entry and 64-slot group with a live slot, 24 operations to build its
+# one-hot row (four quad threads, two shifts and four logic ops each); the
+# packed lists at 8 B per entry
+PACKED_K = 64
+PACKED_OR_OPS_PER_PAIR = 0.5
+PACKED_BUILD_OPS_PER_ENTRY = 24
+PACKED_SLOT_GROUP = 64
 # ... and of the neighbour finder's: the same and a subtract, for the
 # 1..max_dist range test
 MXU_OPS_PER_PAIR = 13
@@ -347,7 +362,7 @@ def finder_inputs(scorer, queries, qb=None):
     return q, plan_slots(q, scorer.S, scorer.B, qb)
 
 
-def compare_finder(scorer, q, qsp, blen=None):
+def compare_finder(scorer, q, qsp, blen=None, max_dist=None):
     """Kernel vs plain version on the same device tensors; exact."""
     from crackling_tpu_torch.ops.compact_finder import (compact_finder,
                                                         compact_finder_plain)
@@ -355,7 +370,8 @@ def compare_finder(scorer, q, qsp, blen=None):
     args = (scorer.entries, scorer.bucket_offsets,
             scorer.bucket_lens if blen is None else blen, q, qsp)
     kw = dict(chunk=scorer.chunk, nchmax=scorer._nchmax,
-              superchunk=scorer.superchunk, max_dist=scorer.max_dist)
+              superchunk=scorer.superchunk,
+              max_dist=scorer.max_dist if max_dist is None else max_dist)
     got = compact_finder(*args, **kw)
     want = compact_finder_plain(*args, **kw)
     sync(q.device)
@@ -364,16 +380,33 @@ def compare_finder(scorer, q, qsp, blen=None):
     return err, int(want.cnt[:, :, -1].sum())
 
 
+def ragged_qb(scorer, queries):
+    """A slot count that holds every bucket's queries and is not a multiple
+    of 8 (the plan's own qb is a multiple of 64)."""
+    from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+
+    _, needed = plan_query_occupancy(queries, scorer.S, scorer.B, 8,
+                                     scorer.qb_cap)
+    return needed + 1 if needed % 8 == 0 else needed
+
+
 def phase_kernel_vs_plain(dev, bench_scorer, bench_queries):
     from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
 
     errs = []
     index, queries = small_world()
     sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device=dev)
-    e, hits = compare_finder(sc, *finder_inputs(sc, queries))
+    inputs = finder_inputs(sc, queries)
+    for max_dist in (4, 0, 2):
+        e, hits = compare_finder(sc, *inputs, max_dist=max_dist)
+        errs.append(e)
+        emit({"phase": "kernel_vs_plain", "input": "small",
+              "max_dist": max_dist, "hits": hits, "max_abs_err": e})
+    q, qsp = finder_inputs(sc, queries, ragged_qb(sc, queries))
+    e, hits = compare_finder(sc, q, qsp)
     errs.append(e)
-    emit({"phase": "kernel_vs_plain", "input": "small", "hits": hits,
-          "max_abs_err": e})
+    emit({"phase": "kernel_vs_plain", "input": "small, ragged qb",
+          "qb": qsp.shape[2], "hits": hits, "max_abs_err": e})
 
     index, queries = skewed_world()
     sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device=dev)
@@ -398,23 +431,47 @@ def phase_kernel_vs_plain(dev, bench_scorer, bench_queries):
     errs.append(e)
     emit({"phase": "kernel_vs_plain", "input": "bench page, 16 buckets",
           "qb": qsp.shape[2], "hits": hits, "max_abs_err": e})
+    q, qsp = finder_inputs(bench_scorer, bench_queries,
+                           ragged_qb(bench_scorer, bench_queries))
+    e, hits = compare_finder(bench_scorer, q, qsp, blen)
+    errs.append(e)
+    emit({"phase": "kernel_vs_plain",
+          "input": "bench page, 16 buckets, ragged qb",
+          "qb": qsp.shape[2], "hits": hits, "max_abs_err": e})
     return max(errs)
 
 
 def finder_bound_ms(scorer, q, qsp, C):
-    """Least time for the finder's work on this page: the larger of its
-    operations over the ALU peak and its bytes over HBM bandwidth."""
+    """Least time for the packed finder's work on this page: the largest of
+    its tensor operations over the int8 peak, its ALU operations (the OR
+    fold of every live pair's sum, the one-hot rows of every entry for
+    every 64-slot group with a live slot) over the ALU peak, and its bytes
+    over HBM bandwidth (the lists of buckets with a live slot, the plan,
+    the queries, the offsets and the output cells, each once). Returns
+    (ms, bound by, live pairs, terms in ms); the terms keep the scalar
+    design's 12-op ALU term as "alu_12op"."""
+    import torch.nn.functional as F
+
     n = q.numel()
-    qcount = (qsp < n).sum(-1).long()
+    S, B, qb = qsp.shape
+    live = (qsp >= 0) & (qsp < n)
+    qcount = live.sum(-1).long()
     blen = scorer.bucket_lens.long()
     pairs = int((blen * qcount).sum())
-    S, B, qb = qsp.shape
-    nbytes = (int(blen.sum()) * 8 + qsp.numel() * 4 + n * 8 + S * B * 12
-              + S * B * C * qb * 20)
-    t_ops = pairs * FINDER_OPS_PER_PAIR / H100_ALU_OPS_PER_S * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes"), pairs
+    pad = -qb % PACKED_SLOT_GROUP
+    groups = F.pad(live, (0, pad)).reshape(S, B, -1, PACKED_SLOT_GROUP)
+    groups = groups.any(-1).sum(-1).long()
+    entry_groups = int((blen * groups).sum())
+    nbytes = (int((blen * (qcount > 0)).sum()) * 8 + qsp.numel() * 4
+              + n * 8 + S * B * 12 + S * B * C * qb * 20)
+    terms = {"tensor": pairs * 2 * PACKED_K / H100_INT8_OPS_PER_S,
+             "operations": (pairs * PACKED_OR_OPS_PER_PAIR
+                            + entry_groups * PACKED_BUILD_OPS_PER_ENTRY)
+             / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    terms["alu_12op"] = pairs * FINDER_OPS_PER_PAIR / H100_ALU_OPS_PER_S
+    return terms[by] * 1e3, by, pairs, {k: v * 1e3 for k, v in terms.items()}
 
 
 def phase_scorer(dev, scorer, queries, card):
@@ -447,7 +504,7 @@ def phase_scorer(dev, scorer, queries, card):
                          max_dist=scorer.max_dist)
     sync(dev)
     plain_ms = (time.perf_counter() - t) * 1e3
-    bound_ms, bound_by, pairs = finder_bound_ms(scorer, q, qsp, C)
+    bound_ms, bound_by, pairs, terms = finder_bound_ms(scorer, q, qsp, C)
 
     # the sample against the exact host scorer (no early exit: raw sums)
     rng = np.random.default_rng(SEED + 1)
@@ -488,13 +545,14 @@ def phase_scorer(dev, scorer, queries, card):
           "page_wall_s": walls, "plan_ms": plan_ms, "finder_ms": finder_ms,
           "decode_ms": decode_ms, "finder_plain_ms": plain_ms,
           "finder_bound_ms": bound_ms, "finder_bound_by": bound_by,
+          "finder_bound_terms_ms": terms,
           "compact_guides_per_s": queries.shape[0] / page_s,
           "hybrid_page_s": hybrid_s,
           "hybrid_guides_per_s": queries.shape[0] / hybrid_s,
           "rescored": hyb.last_rescored,
           "sample_max_rel_err": rel_err})
     return dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by="bytes" if bound_by == "bytes" else "operations")
 
 
 def phase_profile(dev, run, prefix):
@@ -687,6 +745,7 @@ def phase_onehot_page(dev, sc, queries, size, card):
                 lambda: compact_finder(sc.entries, *args[1:], **kw), 3, dev))
     C = compact_finder_onehot(*args, **kw).cnt.shape[2]
     bound_ms, bound_by, pairs, terms = onehot_bound_ms(sc, q, qsp, C)
+    packed_bound = finder_bound_ms(sc, q, qsp, C)
     sync(dev)
     t = time.perf_counter()
     compact_finder_onehot_plain(*args, **kw)
@@ -718,6 +777,9 @@ def phase_onehot_page(dev, sc, queries, size, card):
           "packed_finder_ms": ms["packed"], "onehot_plain_ms": plain_ms,
           "onehot_bound_ms": bound_ms, "onehot_bound_by": bound_by,
           "onehot_bound_terms_ms": terms,
+          "packed_bound_ms": packed_bound[0],
+          "packed_bound_by": packed_bound[1],
+          "packed_bound_terms_ms": packed_bound[3],
           "page_wall_s": walls,
           "guides_per_s": {k: page.shape[0] / float(np.median(v))
                            for k, v in walls.items()},

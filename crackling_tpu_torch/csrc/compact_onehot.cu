@@ -39,8 +39,9 @@
 // three mma.sync, so the tensor cores' latency is hidden within the warp.
 // Hits fold into per-slot chunk quads in shared memory with atomics (ranks
 // arrive in no order across threads); at a chunk's end the block writes
-// the chunk cell and folds it into the superchunk and bucket quads, as
-// compact_finder.cu does. A bucket with no live slot streams nothing.
+// the chunk cell and folds it into the superchunk and bucket quads
+// (csrc/finder_cells.cuh, shared with compact_finder.cu). A bucket with no
+// live slot streams nothing.
 //
 // Contract: launched on the caller's stream, allocates nothing, writes
 // every output cell, and the C entry point returns cudaGetLastError().
@@ -48,7 +49,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "finder_cells.cuh"
+
 namespace {
+
+using finder_cells::Planes;
+using finder_cells::Quads;
+using finder_cells::SlotCells;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
@@ -59,51 +66,6 @@ constexpr int kRowBytes = kK + 16;      // shared row stride (bytes)
 constexpr int kTileRows = 256;          // entries per shared tile
 constexpr int kTileBytes = kTileRows * kRowBytes;
 constexpr int kPieces = kTileRows * kLanes / 16;   // 16-byte global pieces
-constexpr int kRankEmpty = 1 << 23;     // min rank of an empty cell
-
-struct Planes {
-  int* cnt;
-  long long* rsum;
-  int* rmin;
-  int* rmax;
-};
-
-// per-slot quads in shared memory (structure of arrays)
-struct Quads {
-  int* cnt;
-  unsigned long long* sum;
-  int* rmin;
-  int* rmax;
-
-  __device__ __forceinline__ void clear(int j) const {
-    cnt[j] = 0;
-    sum[j] = 0ull;
-    rmin[j] = kRankEmpty;
-    rmax[j] = -1;
-  }
-  __device__ __forceinline__ void fold(int j, const Quads& q) const {
-    cnt[j] += q.cnt[j];
-    sum[j] += q.sum[j];
-    rmin[j] = min(rmin[j], q.rmin[j]);
-    rmax[j] = max(rmax[j], q.rmax[j]);
-  }
-  // slot j's quad into the cell whose slot 0 is at ``cell``
-  __device__ __forceinline__ void store(const Planes& out, long long cell,
-                                        int j) const {
-    const long long at = cell + j;
-    out.cnt[at] = cnt[j];
-    out.rsum[at] = (long long)sum[j];
-    out.rmin[at] = rmin[j];
-    out.rmax[at] = rmax[j];
-  }
-};
-
-__device__ __forceinline__ void store_empty(const Planes& out, long long at) {
-  out.cnt[at] = 0;
-  out.rsum[at] = 0;
-  out.rmin[at] = kRankEmpty;
-  out.rmax[at] = -1;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -194,8 +156,11 @@ compact_onehot_kernel(const int8_t* __restrict__ planes, long long epad,
   const int s = blockIdx.y;
   const long long sb = (long long)s * B + blockIdx.x;
   const int len = blen[sb];
-  const long long ncells = nchmax + nsc + 1;
-  const long long cell0 = sb * ncells * qb;      // cell c, slot j: +c*qb + j
+  // slot j's cell c at sb * (nchmax + nsc + 1) * qb + c * qb + j
+  auto slot_cells = [&](int j) {
+    return SlotCells{sb * (nchmax + nsc + 1) * qb + j, qb, nchmax, nsc,
+                     superchunk};
+  };
 
   if (tid == 0) live_count = 0;
   // lanes 80..95 of every shared row stay zero
@@ -328,10 +293,7 @@ compact_onehot_kernel(const int8_t* __restrict__ planes, long long epad,
             if (r >= len || qid_s[j] < 0) continue;
             const uint32_t x = (uint32_t)mask[e] | force;
             if (((x - 0x11111111u) & ~x & 0x88888888u) != 0u) continue;
-            atomicAdd(&ck.cnt[j], 1);
-            atomicAdd(&ck.sum[j], (unsigned long long)r);
-            atomicMin(&ck.rmin[j], r);
-            atomicMax(&ck.rmax[j], r);
+            ck.add(j, r);
           }
           __syncwarp();     // reconverge before the next ldmatrix / mma.sync
         }
@@ -342,37 +304,16 @@ compact_onehot_kernel(const int8_t* __restrict__ planes, long long epad,
     if (chunk_end) {
       __syncthreads();                       // every hit of the chunk is in
       const int cc = t / tiles_per_chunk;
-      for (int j = tid; j < qb; j += kThreads) {
-        ck.store(out, cell0 + (long long)cc * qb, j);
-        tot.fold(j, ck);
-        if (superchunk > 0) {
-          sc.fold(j, ck);
-          if ((cc + 1) % superchunk == 0 || cc == nch - 1) {
-            sc.store(out, cell0 + (long long)(nchmax + cc / superchunk) * qb,
-                     j);
-            sc.clear(j);
-          }
-        }
-        ck.clear(j);
-      }
+      for (int j = tid; j < qb; j += kThreads)
+        finder_cells::end_chunk(out, slot_cells(j), ck, sc, tot, j, cc, nch);
     }
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
   }
 
-  // cells no chunk wrote: every chunk cell of a bucket that streamed
-  // nothing (empty, or no live slot), the chunks past the bucket's end,
-  // the superchunks past them; then the bucket totals
   const int done = ntiles > 0 ? nch : 0;
-  const int sc_done = ntiles > 0 && superchunk > 0
-                          ? (nch + superchunk - 1) / superchunk : 0;
-  for (int j = tid; j < qb; j += kThreads) {
-    for (int cc = done; cc < nchmax; ++cc)
-      store_empty(out, cell0 + (long long)cc * qb + j);
-    for (int u = sc_done; u < nsc; ++u)
-      store_empty(out, cell0 + (long long)(nchmax + u) * qb + j);
-    tot.store(out, cell0 + (long long)(nchmax + nsc) * qb, j);
-  }
+  for (int j = tid; j < qb; j += kThreads)
+    finder_cells::finish(out, slot_cells(j), tot, j, done);
 }
 
 size_t smem_bytes(int qb) {

@@ -27,6 +27,14 @@ Two implementations of the same function:
   (slot, entry) pairs, in bounded blocks; the CPU tests' engine and the
   reference the kernel is held to on the card.
 
+The kernel takes every pair's distance from an int8 tensor-core product
+(``mma.sync`` m16n8k32) of one-hot entry rows, built in registers from the
+packed words, by the slots' weight columns, and re-tests only the pairs
+within ``max_dist`` from their packed words. :func:`mma_rows` and
+:func:`mma_columns` build the same operands in plain PyTorch, lane for
+lane and from the same bit arithmetic, so the CPU tests can hold the
+kernel's product to the distance.
+
 Replaces crackling_tpu/ops/issl_compact.py::_finder_kernel.
 """
 
@@ -41,7 +49,10 @@ from .bits import SIG40, collapse_pairs, earlier_slice_clean, popcount
 from .kernel_build import KernelLibrary
 
 RANK_EMPTY = 1 << 23          # min-rank of an empty cell (ranks < 2^22)
-KERNEL_TILE = 512             # entries per shared-memory tile (.cu kTile)
+# entries per block round of the kernel (.cu kTile), a multiple of the
+# one-hot kernel's shared tile (compact_onehot.cu kTileRows): chunks are
+# multiples of it
+KERNEL_TILE = 512
 # plain version: (slot, entry) pairs evaluated per block, bounding memory
 PLAIN_PAIR_BLOCK = 1 << 23
 
@@ -160,6 +171,94 @@ def compact_finder(entries: torch.Tensor, boff: torch.Tensor,
 
 
 compact_finder.launches = 0
+
+
+# -- the kernel's operands, in plain PyTorch ------------------------------
+
+MMA_K = 64            # product lanes: 16 positions outside the slice x 4
+_ONES = 0x01010101
+
+
+def _mma_lanes():
+    """Lane ``k = 32 ks + 16 h + 4 t + m`` of the product: thread ``t`` of
+    a quad holds byte ``m`` of the register for base ``2 ks + h``, which is
+    position ``4 m + t`` of :func:`mma_word`. Returns (register, thread,
+    byte), each (MMA_K,) int64."""
+    k = torch.arange(MMA_K)
+    return (2 * (k // 32) + (k // 16) % 2, (k // 4) % 4, k % 4)
+
+
+def mma_lane_bases_positions():
+    """(base, position) of every product lane, each (MMA_K,) int64: the
+    position counts the 16 positions outside the bucket's slice."""
+    reg, t, m = _mma_lanes()
+    return reg, 4 * m + t
+
+
+def mma_word(sig: torch.Tensor, s: int) -> torch.Tensor:
+    """int64 signatures -> the 32-bit words of their 16 positions outside
+    slice ``s`` (position ``i`` at bits ``2i..2i+1``; slice ``s``'s byte,
+    bits ``8s..8s+7``, cut out): the kernel's ``outside_slice``."""
+    low = (1 << (8 * s)) - 1
+    return (sig & low) | ((sig >> 8) & (0xFFFFFFFF ^ low))
+
+
+def mma_registers(word: torch.Tensor, t: int) -> torch.Tensor:
+    """The kernel's ``onehot4``: thread ``t``'s four registers of each
+    word's one-hot row, (..., 4) int64 of 32-bit values; register ``b``
+    byte ``m`` is 1 iff position ``4 m + t`` has base ``b``."""
+    c0 = word >> (2 * t)
+    c1 = c0 >> 1
+    n0, n1 = c0 ^ 0xFFFFFFFF, c1 ^ 0xFFFFFFFF
+    return torch.stack([n0 & n1 & _ONES, c0 & n1 & _ONES, n0 & c1 & _ONES,
+                        c0 & c1 & _ONES], -1)
+
+
+def _lanes_of(regs_by_thread) -> torch.Tensor:
+    """(..., MMA_K) int64 lanes from the four threads' (..., 4)
+    registers."""
+    reg, t, m = _mma_lanes()
+    regs = torch.stack(regs_by_thread, -2)              # (..., 4 t, 4 b)
+    return (regs[..., t, reg] >> (8 * m)) & 0xFF
+
+
+def mma_rows(sig: torch.Tensor, s: int) -> torch.Tensor:
+    """(n,) int64 entry signatures of a bucket of slice ``s`` -> (n,
+    MMA_K) int8: the A operand rows the kernel builds from packed words."""
+    w = mma_word(sig, s)
+    return _lanes_of([mma_registers(w, t) for t in range(4)]).to(torch.int8)
+
+
+def mma_columns(q: torch.Tensor, s: int, live: torch.Tensor,
+                max_dist: int | None = None) -> torch.Tensor:
+    """(m,) int64 query signatures of slots of slice ``s`` and their
+    liveness -> (MMA_K, m) int8 weight columns: 1 at the lanes of the
+    bases a live slot's query does not have (its registers XOR
+    0x01010101), 2 at every lane of a padding slot; their product with
+    :func:`mma_rows` is the distance outside slice ``s``. With
+    ``max_dist``, the kernel's columns: position 0's four weights lowered
+    by ``max_dist + 1`` (every row has exactly one base there), so every
+    product is the distance less ``max_dist + 1``."""
+    w = mma_word(q, s)
+    regs = [torch.where(live[:, None], mma_registers(w, t) ^ _ONES,
+                        2 * _ONES) for t in range(4)]
+    if max_dist is not None:
+        low = regs[0] & 0xFF
+        regs[0] = regs[0] - low + ((low - max_dist - 1) & 0xFF)
+    cols = _lanes_of(regs)
+    return torch.where(cols > 127, cols - 256, cols).to(torch.int8).t() \
+        .contiguous()
+
+
+def mma_candidates(rows: torch.Tensor, cols: torch.Tensor,
+                   rank: torch.Tensor, blen: int) -> torch.Tensor:
+    """The kernel's epilogue screen of rows (n, MMA_K) by the kernel's
+    columns (MMA_K, m), lowered by ``max_dist + 1``: the product is
+    negative and the row's in-bucket ``rank`` (n,) lies below the bucket
+    length ``blen``. A candidate is a hit iff its packed words pass the
+    exact test; padding columns (distance 32) never pass the screen."""
+    d = rows.int() @ cols.int()
+    return (d < 0) & (rank < blen)[:, None]
 
 
 # -- the plain version ----------------------------------------------------

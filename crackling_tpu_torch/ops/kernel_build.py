@@ -2,8 +2,9 @@
 
 Every kernel source ``csrc/<name>.cu`` exposes a plain C entry point. At
 first use nvcc compiles it for sm_90a into ``_build/`` (one shared
-library per source version, named by the source's hash, so an edited
-source is rebuilt and a stale library is never loaded), with the
+library per source version, named by the hash of the source and of the
+headers ``csrc/*.cuh`` beside it, so an edited source or header is rebuilt
+and a stale library is never loaded), with the
 compiler's ``-Xptxas -v`` report beside it as ``.log``; ctypes loads it.
 Nothing is built when a module is imported: the CPU never needs nvcc.
 """
@@ -36,7 +37,10 @@ def build_library(source: str) -> Path:
     """Compile ``csrc/<source>`` for sm_90a into ``_build/`` (once per
     source version) and return the library's path."""
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     out = BUILD / f"lib{src.stem}_{tag}.so"
     if out.exists():
         return out
