@@ -50,16 +50,21 @@ Phases, each fatal on failure:
    page timed at the GPU's work block and at the JAX engine's 2^17, in
    turns;
 7. hold both full-scan kernels (the dense engine's ``dense_scan``, the
-   scan-style engine's ``bucket_scan``) against their plain versions,
-   every cell within rtol 1e-12 / atol 1e-9 (f64 sums of the same f32
-   terms in another order), on the small index, the skewed index and 16
-   buckets of the 65,536-query page;
+   scan-style engine's ``bucket_scan``, both an int8 tensor-core distance
+   screen over one-hot rows built from the packed lists) against their
+   plain versions, every cell within rtol 1e-12 / atol 1e-9 (f64 sums of
+   the same f32 terms in another order), on the small index (max-distance
+   4, 0 and 2; a ragged qb for ``dense_scan``; ``bucket_scan`` also at
+   slice widths 4 and 16, its K = 96 path), the skewed index and 16
+   buckets of the 65,536-query page (max-distance 4, 0 and 2; a ragged
+   qb);
 8. score that page with the dense engine (kernel time with CUDA events,
-   plan and page on the host clock, a 2,048-query sample within rtol
-   1e-4 of the exact sums); then the hybrid over it (``last_rescored``,
-   page wall time, sample verdicts identical to native exact for
-   ``and``); then the same 65,536 queries with the scan-style engine in
-   8,192-query pages, timed and checked the same way;
+   plan and page on the host clock, the kernel's bound with its tensor,
+   operations and bytes terms, a 2,048-query sample within rtol 1e-4 of
+   the exact sums); then the hybrid over it (``last_rescored``, page wall
+   time, sample verdicts identical to native exact for ``and``); then
+   the same 65,536 queries with the scan-style engine in 8,192-query
+   pages, timed and checked the same way;
 9. the deep bucket: an index with one bucket of more than 2^22 entries,
    written to a ``.issl``, through ``Pipeline._get_issl_scorer`` with
    ``engine = compact``: it must log the fallback and build the hybrid
@@ -79,8 +84,12 @@ Phases, each fatal on failure:
     with no plain version run in any; each run's ``passedOffTargetScore``
     column must equal the ``auto`` run's row by row;
 12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
-    2,048-query file of the 27 Mbp index: verdicts identical to the
-    native exact scorer's, scores within its f32 tier (``SCORE_RTOL``);
+    2,048-query file of the 27 Mbp index: with CRACKLING_PLATFORM unset
+    the work is below the JAX CLI's 5e8, so it scores in f64 on the card
+    and every printed line must equal ``%f`` of the native exact
+    scorer's scores, apart from counted rounding ties
+    (``PRINT_TIE_RTOL``); with CRACKLING_PLATFORM=cuda (TwoSum f32)
+    verdicts identical and scores within its f32 tier (``SCORE_RTOL``);
 13. print the kernels line and, last, the device line.
 
 The first, uncached run also builds the 27 Mbp dataset (~17 s of host
@@ -140,9 +149,19 @@ ONEHOT_EPILOGUE_OPS_PER_PAIR = 2
 ONEHOT_TILE_ROWS = 256
 # the small page of the one-hot comparison
 SMALL_PAGE = 4096
-# ... and of the full-scan scorers': the compact finder's predicate (the
-# dedup and the terms run only on the rare pairs within max_dist)
+# the full-scan scorers' bound: their int8 screen is the packed finder's
+# (2 x K operations per live pair on the tensor cores, K = 64 at w = 8 and
+# 96 at the bucket scan's other widths; half an OR per pair; 24 operations
+# per entry and 64-query group to build its one-hot row, 36 at K = 96,
+# whose third k-step adds a shift, a mask and a shift per quad thread),
+# and each hit costs ~64 more (the exact re-test, the 20-bit mask, the CFD
+# product over its mismatches, two f64 products and atomics); the packed
+# lists at 8 B per entry, the occurrence and MIT table entry of each hit
+# at 4 B each. The scalar design's predicate, 12 ops per pair, is kept as
+# the "alu_12op" term for history.
 FULLSCAN_OPS_PER_PAIR = FINDER_OPS_PER_PAIR
+FULLSCAN_BUILD_OPS_PER_ENTRY = {64: PACKED_BUILD_OPS_PER_ENTRY, 96: 36}
+FULLSCAN_HIT_OPS = 64
 # the full-scan kernels against their plain versions: f64 sums of the
 # same f32 terms, summed in another order
 FULLSCAN_RTOL, FULLSCAN_ATOL = 1e-12, 1e-9
@@ -155,6 +174,11 @@ SAMPLE = 2048
 # terms carry ~1e-6 relative error, sums are TwoSum-compensated, and the
 # printed %f rounds to 5e-7
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+# scoreOfftargets in f64 against the native exact scorer's %f lines: a
+# printed field may differ only where the exact value lies this close
+# (relative) to a %f rounding boundary, where the order of the f64 sums
+# decides the last digit
+PRINT_TIE_RTOL = 1e-12
 METHODS = (("mit", 80.0), ("cfd", 80.0), ("and", 75.0), ("or", 75.0),
            ("avg", 90.0))
 
@@ -328,6 +352,13 @@ def bench_dataset():
 # -- phases ---------------------------------------------------------------
 
 
+def ptxas_lines(report):
+    """The lines of nvcc's ``-Xptxas -v`` report that name each kernel and
+    give its registers, shared memory and spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
 def phase_build():
     from crackling_tpu_torch import native
     from crackling_tpu_torch.ops.kernel_build import build_library
@@ -340,11 +371,8 @@ def phase_build():
         libs = [k.result() for k in kerns]
         if host.result() is None:
             fail("the native host library did not build (g++)")
-    ptxas = {}
-    for src, lib in zip(sources, libs):
-        ptxas[src] = [ln.strip() for ln in lib.with_suffix(".log")
-                      .read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+    ptxas = {src: ptxas_lines(lib.with_suffix(".log").read_text())
+             for src, lib in zip(sources, libs)}
     emit({"phase": "build", "kernel_libraries": [p.name for p in libs],
           "ptxas": ptxas})
 
@@ -1026,19 +1054,20 @@ def fullscan_engines(index, dev, **dense_kw):
             ScanIsslScorer(index, max_dist=4, device=dev))
 
 
-def dense_inputs(eng, queries):
+def dense_inputs(eng, queries, qb=None):
     """The dense scan's inputs for one page of ``queries`` (the slot plan
-    the engine itself makes)."""
+    the engine itself makes, or one of ``qb`` slots)."""
     from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
 
-    qb, _ = plan_query_occupancy(queries, eng.S, eng.B, 8, eng.qb_cap)
+    if qb is None:
+        qb, _ = plan_query_occupancy(queries, eng.S, eng.B, 8, eng.qb_cap)
     if qb is None:
         fail("query page overflows the dense engine's qb_cap")
     q = eng.query_tensor(queries)
     return q, eng.plan(q, qb)
 
 
-def hit_count(eng, q, qsp, blen):
+def hit_count(eng, q, qsp, blen, max_dist=None):
     """Hits of the full-scan predicate on this plan: the compact finder's
     plain version tests the same predicate (w = 8); its bucket totals."""
     from crackling_tpu_torch.ops.compact_finder import (KERNEL_TILE,
@@ -1048,7 +1077,8 @@ def hit_count(eng, q, qsp, blen):
                 * KERNEL_TILE)
     fo = compact_finder_plain(eng.entries, eng.bucket_offsets, blen, q, qsp,
                               chunk=width, nchmax=1, superchunk=0,
-                              max_dist=eng.max_dist)
+                              max_dist=eng.max_dist if max_dist is None
+                              else max_dist)
     return int(fo.cnt[:, :, -1].sum())
 
 
@@ -1070,43 +1100,108 @@ def check_sums(what, got, want):
     return errs
 
 
-def compare_dense(eng, q, qsp, blen=None):
+def compare_dense(eng, q, qsp, blen=None, max_dist=None):
     from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
 
     blen = eng.bucket_lens if blen is None else blen
+    max_dist = eng.max_dist if max_dist is None else max_dist
     args = (eng.entries, eng.occ, eng.bucket_offsets, blen, q, qsp)
-    kw = dict(max_dist=eng.max_dist, tabs=eng.tables)
+    kw = dict(max_dist=max_dist, tabs=eng.tables)
     got = dense_scan(*args, **kw)
     want = dense_scan_plain(*args, **kw)
     sync(q.device)
-    return check_sums("dense scan", got, want), hit_count(eng, q, qsp, blen)
+    return (check_sums("dense scan", got, want),
+            hit_count(eng, q, qsp, blen, max_dist))
 
 
-def compare_scan(eng, q, blen=None):
+def compare_scan(eng, q, blen=None, max_dist=None):
     from crackling_tpu_torch.ops.fullscan import (bucket_scan,
                                                   bucket_scan_plain)
 
     blen = eng.bucket_lens if blen is None else blen
     qoff, qsorted = eng.plan(q)
     args = (eng.entries, eng.occ, eng.bucket_offsets, blen, q, qoff, qsorted)
-    kw = dict(slice_width=eng.index.slice_width, max_dist=eng.max_dist,
+    kw = dict(slice_width=eng.index.slice_width,
+              max_dist=eng.max_dist if max_dist is None else max_dist,
               tabs=eng.tables)
     got = bucket_scan(*args, **kw)
     want = bucket_scan_plain(*args, **kw)
     sync(q.device)
-    return check_sums("bucket scan", got, want)
+    return check_sums("bucket scan", got, want), int((want[1] > 0).sum())
+
+
+def scan_at_width(index, width, dev):
+    """The scan-style engine over the index's sites at slice width 4 (10
+    slices) or 16 (2 slices over positions 0-15, an index of 16-position
+    slices whose 40-bit signatures keep positions 16-19 for the distance):
+    the bucket scan's K = 96 path."""
+    from crackling_tpu_torch.index.build import IsslIndex
+    from crackling_tpu_torch.ops.issl_scan import ScanIsslScorer
+
+    other = IsslIndex(seq_length=20 if width < 16 else 16,
+                      slice_width=width, seq_count=index.seq_count,
+                      site_sigs=index.site_sigs,
+                      occurrences=index.occurrences)
+    return ScanIsslScorer(other, max_dist=4, device=dev)
 
 
 def phase_fullscan_kernels_vs_plain(dev, bench_dense, bench_scan, queries):
     """Both full-scan kernels against their plain versions on the small
-    index, the skewed index and 16 buckets of the 65,536-query page;
-    returns each kernel's largest (abs, rel) error."""
+    index (max-distance 4, 0 and 2; a ragged qb for the dense scan; the
+    bucket scan also at slice widths 4 and 16, its K = 96 path), the
+    skewed index and 16 buckets of the 65,536-query page (max-distance 4,
+    0 and 2; a ragged qb); returns each kernel's largest (abs, rel)
+    error."""
     worst = {"dense_scan": [0.0, 0.0], "bucket_scan": [0.0, 0.0]}
-    inputs = []
-    for name, world in (("small", small_world), ("skewed", skewed_world)):
-        index, qs = world()
-        dense, scan = fullscan_engines(index, dev, chunk=1024)
-        inputs.append((name, dense, scan, qs, None))
+
+    def note(kernel, err):
+        worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], err)]
+
+    def both(name, dense, scan, qs, bl, max_dist=4, qb=None):
+        q, qsp = dense_inputs(dense, qs, qb)
+        derr, hits = compare_dense(dense, q, qsp, bl, max_dist)
+        serr, scan_cells = compare_scan(scan, q, bl, max_dist)
+        note("dense_scan", derr)
+        note("bucket_scan", serr)
+        emit({"phase": "fullscan_kernels_vs_plain", "input": name,
+              "max_dist": max_dist, "qb": int(qsp.shape[2]), "hits": hits,
+              "bucket_scan_cells_hit": scan_cells,
+              "dense_scan_max_abs_err": derr[0],
+              "dense_scan_max_rel_err": derr[1],
+              "bucket_scan_max_abs_err": serr[0],
+              "bucket_scan_max_rel_err": serr[1]})
+
+    index, qs = small_world()
+    dense, scan = fullscan_engines(index, dev, chunk=1024)
+    for max_dist in (4, 0, 2):
+        both("small", dense, scan, qs, None, max_dist)
+    q, qsp = dense_inputs(dense, qs, ragged_qb(dense, qs))
+    derr, hits = compare_dense(dense, q, qsp)
+    note("dense_scan", derr)
+    emit({"phase": "fullscan_kernels_vs_plain", "input": "small, ragged qb",
+          "qb": int(qsp.shape[2]), "hits": hits,
+          "dense_scan_max_abs_err": derr[0],
+          "dense_scan_max_rel_err": derr[1]})
+    for width in (4, 16):
+        wscan = scan_at_width(index, width, dev)
+        for max_dist in (4, 2):
+            serr, cells = compare_scan(wscan, wscan.query_tensor(qs),
+                                       max_dist=max_dist)
+            if cells == 0:
+                fail(f"bucket scan at width {width}: no cell hit, so the "
+                     "K = 96 path was not exercised")
+            note("bucket_scan", serr)
+            emit({"phase": "fullscan_kernels_vs_plain",
+                  "input": f"small, slice width {width}",
+                  "slices": wscan.S, "max_dist": max_dist,
+                  "bucket_scan_cells_hit": cells,
+                  "bucket_scan_max_abs_err": serr[0],
+                  "bucket_scan_max_rel_err": serr[1]})
+        del wscan
+
+    index, qs = skewed_world()
+    dense, scan = fullscan_engines(index, dev, chunk=1024)
+    both("skewed", dense, scan, qs, None)
     # 8 buckets each of slices 0 and 4 of the full page: other buckets
     # are given length 0, so both versions skip them
     blen = bench_dense.bucket_lens.clone()
@@ -1114,32 +1209,39 @@ def phase_fullscan_kernels_vs_plain(dev, bench_dense, bench_scan, queries):
     keep[0, 40:48] = True
     keep[-1, 200:208] = True
     blen[~keep] = 0
-    inputs.append(("bench page, 16 buckets", bench_dense, bench_scan,
-                   queries, blen))
-    for name, dense, scan, qs, bl in inputs:
-        q, qsp = dense_inputs(dense, qs)
-        derr, hits = compare_dense(dense, q, qsp, bl)
-        serr = compare_scan(scan, q, bl)
-        for k, e in (("dense_scan", derr), ("bucket_scan", serr)):
-            worst[k] = [max(a, b) for a, b in zip(worst[k], e)]
-        emit({"phase": "fullscan_kernels_vs_plain", "input": name,
-              "qb": int(qsp.shape[2]), "hits": hits,
-              "dense_scan_max_abs_err": derr[0],
-              "dense_scan_max_rel_err": derr[1],
-              "bucket_scan_max_abs_err": serr[0],
-              "bucket_scan_max_rel_err": serr[1]})
+    for max_dist in (4, 0, 2):
+        both("bench page, 16 buckets", bench_dense, bench_scan, queries,
+             blen, max_dist)
+    q, qsp = dense_inputs(bench_dense, queries,
+                          ragged_qb(bench_dense, queries))
+    derr, hits = compare_dense(bench_dense, q, qsp, blen)
+    note("dense_scan", derr)
+    emit({"phase": "fullscan_kernels_vs_plain",
+          "input": "bench page, 16 buckets, ragged qb",
+          "qb": int(qsp.shape[2]), "hits": hits,
+          "dense_scan_max_abs_err": derr[0],
+          "dense_scan_max_rel_err": derr[1]})
     return worst
 
 
-def fullscan_bound_ms(eng, pairs, nbytes):
-    """Least time for a full-scan kernel's work: the larger of its
-    operations over the ALU peak and its bytes over HBM bandwidth (the
-    entries, occurrences and tables read once, the sums written once)."""
-    nbytes += eng.tables.mit.numel() * 4 + eng.tables.pen.numel() * 4
-    t_ops = pairs * FULLSCAN_OPS_PER_PAIR / H100_ALU_OPS_PER_S * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+def fullscan_bound_ms(eng, k, pairs, entry_groups, hits, nbytes):
+    """Least time for a full-scan kernel's work: the largest of its tensor
+    operations (2 x ``k`` per live pair) over the int8 peak, its ALU
+    operations (the OR fold of every live pair's sum, the one-hot rows of
+    every entry for every 64-query group, the scoring of every hit) over
+    the ALU peak, and its bytes (``nbytes`` and the penalty table) over
+    HBM bandwidth. Returns (ms, bound by, terms in ms); the terms keep the
+    scalar design's 12-op ALU term as "alu_12op"."""
+    nbytes += eng.tables.pen.numel() * 4
+    terms = {"tensor": pairs * 2 * k / H100_INT8_OPS_PER_S,
+             "operations": (pairs * PACKED_OR_OPS_PER_PAIR
+                            + entry_groups * FULLSCAN_BUILD_OPS_PER_ENTRY[k]
+                            + hits * FULLSCAN_HIT_OPS)
+             / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    terms["alu_12op"] = pairs * FULLSCAN_OPS_PER_PAIR / H100_ALU_OPS_PER_S
+    return terms[by] * 1e3, by, {k: v * 1e3 for k, v in terms.items()}
 
 
 def sample_vs_exact(eng, what, index, mit_sum, cfd_sum, sample_idx, sample):
@@ -1169,6 +1271,8 @@ def sample_vs_exact(eng, what, index, mit_sum, cfd_sum, sample_idx, sample):
 def phase_dense_page(dev, eng, queries, card):
     """The dense engine on the 65,536-query page, then the hybrid over
     it."""
+    import torch.nn.functional as F
+
     from crackling_tpu_torch import native
     from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
     from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
@@ -1190,13 +1294,18 @@ def phase_dense_page(dev, eng, queries, card):
     sync(dev)
     plain_ms = (time.perf_counter() - t) * 1e3
     n = q.numel()
-    qcount = (qsp < n).sum(-1).long()
+    S, B, qb = qsp.shape
+    live = qsp < n
+    qcount = live.sum(-1).long()
     blen = eng.bucket_lens.long()
     pairs = int((blen * qcount).sum())
-    S, B, qb = qsp.shape
-    bound_ms, bound_by = fullscan_bound_ms(
-        eng, pairs, int(blen.sum()) * 12 + qsp.numel() * 4 + n * 8
-        + S * B * 12 + S * B * qb * 16)
+    groups = F.pad(live, (0, -qb % PACKED_SLOT_GROUP)).reshape(
+        S, B, -1, PACKED_SLOT_GROUP).any(-1).sum(-1).long()
+    hits = hit_count(eng, q, qsp, eng.bucket_lens)
+    bound_ms, bound_by, terms = fullscan_bound_ms(
+        eng, PACKED_K, pairs, int((blen * groups).sum()), hits,
+        int((blen * (qcount > 0)).sum()) * 8 + hits * 8 + qsp.numel() * 4
+        + n * 8 + S * B * 12 + S * B * qb * 16)
 
     rng = np.random.default_rng(SEED + 5)
     pick = rng.choice(queries.shape[0], size=min(SAMPLE, queries.shape[0]),
@@ -1217,8 +1326,9 @@ def phase_dense_page(dev, eng, queries, card):
     emit({"phase": "dense_page", "card": card, "device": str(dev),
           "sites": eng.index.num_sites, "queries": n, "qb": qb,
           "pairs": pairs, "page_wall_s": walls, "plan_ms": plan_ms,
-          "kernel_ms": kernel_ms, "kernel_plain_ms": plain_ms,
-          "kernel_bound_ms": bound_ms, "kernel_bound_by": bound_by,
+          "hits": hits, "kernel_ms": kernel_ms,
+          "kernel_plain_ms": plain_ms, "kernel_bound_ms": bound_ms,
+          "kernel_bound_by": bound_by, "kernel_bound_terms_ms": terms,
           "dense_guides_per_s": n / page_s,
           "sample_max_rel_err": rel, "sample_max_score_dev": score_dev,
           "hybrid_band": hyb.band, "hybrid_sample_rescored": sample_rescored,
@@ -1226,7 +1336,8 @@ def phase_dense_page(dev, eng, queries, card):
           "last_rescored": hyb.last_rescored,
           "hybrid_guides_per_s": n / float(np.median(hyb_walls))})
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by="bytes" if bound_by == "bytes" else "operations",
+                bound_terms_ms=terms)
 
 
 def phase_scan_page(dev, eng, queries, card):
@@ -1253,12 +1364,22 @@ def phase_scan_page(dev, eng, queries, card):
     bucket_scan_plain(*args, **kw)
     sync(dev)
     plain_ms = (time.perf_counter() - t) * 1e3
+    from crackling_tpu_torch.ops.fullscan import scan_k
+    from crackling_tpu_torch.ops.issl_compact import plan_slots
+
     counts = (qoff[:, 1:] - qoff[:, :-1]).long()
     blen = eng.bucket_lens.long()
     pairs = int((blen * counts).sum())
     S, n = qsorted.shape
-    bound_ms, bound_by = fullscan_bound_ms(
-        eng, pairs, int(blen.sum()) * 12 + qoff.numel() * 4
+    # the hits of the page: the finder's plain version over a slot plan of
+    # its queries tests the same predicate (w = 8: the raw dedup is the
+    # byte dedup)
+    qb = int(counts.max())
+    hits = hit_count(eng, q, plan_slots(q, S, eng.B, qb), eng.bucket_lens)
+    bound_ms, bound_by, terms = fullscan_bound_ms(
+        eng, scan_k(eng.index.slice_width), pairs,
+        int((blen * (-(-counts // PACKED_SLOT_GROUP))).sum()), hits,
+        int((blen * (counts > 0)).sum()) * 8 + hits * 8 + qoff.numel() * 4
         + qsorted.numel() * 4 + n * 8 + S * eng.B * 12 + S * n * 16)
     rng = np.random.default_rng(SEED + 6)
     pick = rng.choice(queries.shape[0], size=min(SAMPLE, queries.shape[0]),
@@ -1270,13 +1391,15 @@ def phase_scan_page(dev, eng, queries, card):
           "queries": int(queries.shape[0]), "query_page": eng.query_page,
           "launches_per_pass": -(-queries.shape[0] // eng.query_page),
           "pairs_per_page": pairs, "pass_wall_s": walls,
-          "page_ms": page_ms, "plan_ms": plan_ms, "kernel_ms": kernel_ms,
-          "kernel_plain_ms": plain_ms, "kernel_bound_ms": bound_ms,
-          "kernel_bound_by": bound_by,
+          "hits_per_page": hits, "page_ms": page_ms, "plan_ms": plan_ms,
+          "kernel_ms": kernel_ms, "kernel_plain_ms": plain_ms,
+          "kernel_bound_ms": bound_ms, "kernel_bound_by": bound_by,
+          "kernel_bound_terms_ms": terms,
           "scan_guides_per_s": queries.shape[0] / page_s,
           "sample_max_rel_err": rel, "sample_max_score_dev": score_dev})
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by="bytes" if bound_by == "bytes" else "operations",
+                bound_terms_ms=terms)
 
 
 def deep_world(seed=31, n_deep=4_300_000):
@@ -1582,48 +1705,112 @@ def same_verdicts(rows_auto, rows, engine):
              f"passedOffTargetScore in {diff} rows")
 
 
-def phase_score_offtargets(dev, index, queries, files):
-    """``scoreOfftargets`` through its CLI entry point on a 2,048-query
-    file: verdicts identical to the native exact scorer's, scores within
-    SCORE_RTOL / SCORE_ATOL of its f64 scores."""
+def run_score_offtargets(files, qfile, platform):
+    """``scoreOfftargets`` through its CLI entry point with
+    CRACKLING_PLATFORM set to ``platform`` (None: unset); returns (printed
+    rows, seconds)."""
     import contextlib
     import io
 
+    from crackling_tpu_torch.utils import cli
+
+    if platform is None:
+        os.environ.pop("CRACKLING_PLATFORM", None)
+    else:
+        os.environ["CRACKLING_PLATFORM"] = platform
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main_score_offtargets([str(files["issl"]), str(qfile), "4",
+                                       "75", "and"])
+    finally:
+        os.environ.pop("CRACKLING_PLATFORM", None)
+    wall = time.perf_counter() - t
+    rows = [ln.split("\t") for ln in buf.getvalue().splitlines()]
+    if len(rows) != SAMPLE:
+        fail(f"scoreOfftargets printed {len(rows)} lines for {SAMPLE} "
+             "queries")
+    return rows, wall
+
+
+def near_rounding_boundary(v):
+    """True where ``v`` lies within PRINT_TIE_RTOL (relative) of a ``%f``
+    rounding boundary: there the order of an f64 sum decides the printed
+    digit."""
+    x = v * 1e6
+    return abs(x - (np.floor(x) + 0.5)) * 1e-6 <= PRINT_TIE_RTOL * abs(v)
+
+
+def phase_score_offtargets(dev, index, queries, files):
+    """``scoreOfftargets`` through its CLI entry point on a 2,048-query
+    file. With CRACKLING_PLATFORM unset the workload (queries x slices x
+    sites per bucket) is below 5e8, so it scores in f64 on the card: every
+    printed line must equal ``%f`` of the native exact scorer's scores,
+    apart from values within PRINT_TIE_RTOL of a rounding boundary
+    (counted and printed). With CRACKLING_PLATFORM=cuda it scores in
+    TwoSum f32: verdicts identical, scores within SCORE_RTOL /
+    SCORE_ATOL."""
     from crackling_tpu_torch import native
     from crackling_tpu_torch.codec import sigs_to_strings
     from crackling_tpu_torch.pipeline.run import verdicts
-    from crackling_tpu_torch.utils import cli
 
     rng = np.random.default_rng(SEED + 4)
     sample = queries[rng.choice(queries.shape[0], size=SAMPLE,
                                 replace=False)]
     qfile = CACHE / "score_queries.txt"
     qfile.write_text("".join(s + "\n" for s in sigs_to_strings(sample, 20)))
-    if torch_is_cuda(dev):
-        os.environ.pop("CRACKLING_PLATFORM", None)
-    else:
-        os.environ["CRACKLING_PLATFORM"] = "cpu"
-    buf = io.StringIO()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        cli.main_score_offtargets([str(files["issl"]), str(qfile), "4", "75",
-                                   "and"])
-    wall = time.perf_counter() - t
-    rows = [ln.split("\t") for ln in buf.getvalue().splitlines()]
-    if len(rows) != SAMPLE:
-        fail(f"scoreOfftargets printed {len(rows)} lines for {SAMPLE} "
-             "queries")
+    est = SAMPLE * index.slice_count * (index.num_sites / index.bucket_count)
+    on_gpu = torch_is_cuda(dev)
+    if on_gpu and est >= 5e8:
+        fail(f"the scoreOfftargets sample's work estimate {est:.3g} is not "
+             "below 5e8: the f64 rule is not exercised")
+    want = native.exact_score_native(index, sample, 4, 75.0, "and")
+    if want is None:
+        fail("native exact scorer unavailable")
+
+    # f64 on the card (CRACKLING_PLATFORM unset): the binary's lines
+    rows, wall = run_score_offtargets(files, qfile,
+                                      None if on_gpu else "cpu")
+    ties, other = [], []
+    for i, r in enumerate(rows):
+        for field, w in ((1, want[0][i]), (2, want[1][i])):
+            if r[field] == "%f" % w:
+                continue
+            (ties if near_rounding_boundary(w) else other).append(
+                {"line": i, "printed": r[field], "exact": repr(float(w))})
+    if other:
+        fail(f"scoreOfftargets (f64) printed {len(other)} fields unlike the "
+             f"native exact scorer's %f: {other[:5]}")
     got = (np.array([float(r[1]) for r in rows]),
            np.array([float(r[2]) for r in rows]))
-    want = native.exact_score_native(index, sample, 4, 75.0, "and")
     if not np.array_equal(verdicts(*got, 75.0, "and"),
                           verdicts(*want, 75.0, "and")):
         fail("scoreOfftargets verdicts differ from the native exact scorer")
+    emit({"phase": "score_offtargets", "platform": "unset",
+          "work_estimate": est, "dtype": "float64", "queries": SAMPLE,
+          "wall_s": wall, "lines_equal": SAMPLE - len({t["line"]
+                                                       for t in ties}),
+          "rounding_ties": len(ties), "ties": ties,
+          "max_abs_diff": max(float(np.abs(g - w).max())
+                              for g, w in zip(got, want))})
+    if not on_gpu:
+        return
+
+    # TwoSum f32 on the card (CRACKLING_PLATFORM=cuda)
+    rows, wall = run_score_offtargets(files, qfile, "cuda")
+    got = (np.array([float(r[1]) for r in rows]),
+           np.array([float(r[2]) for r in rows]))
+    if not np.array_equal(verdicts(*got, 75.0, "and"),
+                          verdicts(*want, 75.0, "and")):
+        fail("scoreOfftargets (f32) verdicts differ from the native exact "
+             "scorer")
     for name, g, w in zip(("mit", "cfd"), got, want):
         if not np.allclose(g, w, rtol=SCORE_RTOL, atol=SCORE_ATOL):
             fail(f"scoreOfftargets {name} scores outside the f32 tier "
                  f"(max abs diff {np.abs(g - w).max():.3e})")
-    emit({"phase": "score_offtargets", "queries": SAMPLE, "wall_s": wall,
+    emit({"phase": "score_offtargets", "platform": "cuda",
+          "dtype": "float32", "queries": SAMPLE, "wall_s": wall,
           "max_abs_diff": max(float(np.abs(g - w).max())
                               for g, w in zip(got, want)),
           "rtol": SCORE_RTOL, "atol": SCORE_ATOL})

@@ -13,39 +13,59 @@
 //   slice width and a CFD select tree. Its queries sit in a CSR of sorted
 //   queries, qoff (S, B+1) and qsorted (S, n).
 //
-// Hopper has __popc, so both entry points compute each pair directly: XOR,
-// pair collapse and popcount give the distance; only a pair within max_dist
-// tests the first-clean-slice dedup (dense: the bytes of the collapsed low
-// word, w = 8, as the compact finder; bucket scan: each earlier slice's raw
-// XOR bits, at the index's width); a hit then reads its MIT local score from
-// the 2^20-entry f32 table by its 20-bit mask (4 MB, read only on hits, so it
-// stays in L2) and forms its CFD as pam times the penalty of every mismatched
-// position in ascending order (1.0 at distance 0), from the 1.3 KB penalty
-// table held in shared memory. The f32 terms are formed in the order of the
-// port's plain version (issl_compact.pair_scores), and each hit adds
-// occ x term to an f64 accumulator (an exact product), so kernel and plain
-// version differ only in the order of their f64 sums.
+// The hit test is a distance screen on the tensor cores, as in
+// csrc/compact_finder.cu (the helpers are csrc/mma_screen.cuh): every
+// (entry, query) pair's distance is an int8 product (mma.sync m16n8k32) of
+// the entry's one-hot row, built in registers from its packed word, by the
+// query's weight column (1 at the lanes of the bases the query does not
+// have). The product's K:
+// * 64 where a bucket's own slice is one byte (w = 8: the dense scan, and
+//   the bucket scan at w = 8): the 16 positions outside slice s, two k32
+//   steps. Entries and queries of the bucket share slice s.
+// * 96 at the bucket scan's other widths (2, 4, 16), where a slice is not
+//   four whole positions: all 20 positions, three k32 steps. The first two
+//   are positions 0-15 of the low word, laid out as at K = 64; in the third,
+//   byte m of the first register is 1 iff position 16 + t has base m, and
+//   its upper half (lanes 80-95) is zero.
+// Position 0's weights are lowered by max_dist + 1 (every row has exactly
+// one base there), so a pair is a candidate iff its sum is negative; an OR
+// tree and one warp vote skip the (16-entry, NT x 8-query) tiles that hold
+// none (nearly all: hits are rare). A query column of a padding slot holds
+// 2 at every lane (distance 32 or 40: never a candidate); rows past the
+// bucket load 0, distance 0 to a poly-A query, so the candidate path tests
+// the rank. A candidate is re-tested from its packed words (the distance
+// and the first-clean-slice dedup: the dense scan on the bytes of the
+// collapsed low word, exact_hit; the bucket scan on each earlier slice's raw
+// XOR bits at the index's width), and a hit then reads its MIT local score
+// from the 2^20-entry f32 table by its 20-bit mask (4 MB, read only on hits,
+// so it stays in L2), forms its CFD as pam times the penalty of every
+// mismatched position in ascending order (1.0 at distance 0) from the
+// 1.3 KB penalty table held in shared memory, reads its occurrence, and
+// adds occ x term to its query's f64 sums in shared memory (atomics: the
+// warps of a block hit the same queries). The f32 terms are formed in the
+// order of the port's plain version (issl_compact.pair_scores), and occ x
+// term is the plain version's product, so kernel and plain version differ
+// only in the order of their f64 sums.
 //
-// What bounds it on the H100: integer ALU work, not bytes. A page does one
-// distance test per (query, bucket entry) pair: S x sum_b(blen_b x queries_b),
-// 6.48e9 pairs for the dense engine's 65,536-query page at the 27 Mbp
-// operating point (the compact finder's pairs and predicate), ~12 32-bit
-// operations each, ~1.16 ms at the card's 67e12 op/s; the scan-style engine's
-// pairs are what its CSR ranges give. The packed index streamed per page is
-// ~12 B per entry per slice (~0.4 GB at 27 Mbp, ~0.1 ms of HBM). Hits are
-// rare (distance <= 4 of 20 positions), so the scoring branch is off the
-// critical path.
+// What bounds it on the H100: the tensor cores. Per (query, entry) pair
+// 2 x K int8 operations: at the dense engine's 65,536-query page of the
+// 27 Mbp operating point (6.48e9 pairs, K = 64) 6.48e9 x 128 / 1,979e12 =
+// 0.42 ms; per 8,192-query page of the scan-style engine (8.10e8 pairs)
+// 0.05 ms, against ~0.06 ms for its packed lists (5 slices x 5.06 M entries
+// x 8 B at 3.35 TB/s). The 32-bit ALU work is the operand build (per entry
+// and 64-query group 2 x 6 ops per quad thread) and the OR fold (half an
+// op per pair); the scoring runs only on the rare hits.
 //
-// What the design does about it: one thread per query (a slot of the plan,
-// or a position of the bucket's CSR range) keeps its signature and two f64
-// accumulators in registers, so each pair costs only the distance test. A
-// block of kThreads queries of one (slice, bucket) stages the bucket's packed
-// entries and occurrences in shared memory by coalesced cooperative loads,
-// kTile entries at a time, and every thread reads each entry as a broadcast.
-// Padding slots (id >= n) and entries past the bucket's length are skipped by
-// index. The bucket scan walks its bucket's CSR range in groups of kThreads
-// inside one block per (slice, bucket), so a bucket with fewer queries leaves
-// lanes idle (at 8,192 queries a bucket holds ~32 per slice).
+// What the design does about it: one block of eight warps per 64-query
+// group of one (slice, bucket) (the dense scan: grid (64-slot groups of qb,
+// B, S); the bucket scan: grid (B, S, Z), block z taking the bucket's
+// groups of 64 consecutive CSR positions z, z + Z, ..., and a block whose
+// bucket has fewer groups leaving at once). A block compacts its live
+// queries into NT <= 8 n-tiles and builds their B fragments in registers
+// once; its warps take the bucket's 64-entry batches in turn, a lane loading
+// two entries (coalesced, one batch ahead), and the quads exchange words by
+// shuffles, so no operand passes through shared memory and a group reads the
+// bucket once. Occurrences are read only for hits: 8 B per streamed entry.
 //
 // Contract: launched on the caller's stream, allocates nothing, writes every
 // output cell (0 where a slot holds no query), and each C entry point returns
@@ -54,10 +74,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_screen.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;          // queries per block
-constexpr int kTile = 512;            // entries per shared-memory tile
+using mma_screen::a_fragments;
+using mma_screen::exact_hit;
+using mma_screen::kFull;
+using mma_screen::kOnes;
+using mma_screen::mma_acc;
+using mma_screen::mma_first;
+using mma_screen::onehot4;
+using mma_screen::or_tree;
+using mma_screen::outside_slice;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kSlots = 64;            // queries per block (one group)
+constexpr int kBatch = 64;            // entries per warp step: 4 m-tiles
+constexpr int kMaxZ = 64;             // the bucket scan's grid depth
 constexpr int kPenalties = 20 * 16;   // CFD position penalties
 
 __device__ __forceinline__ uint32_t compress_even_bits(uint32_t x) {
@@ -95,21 +130,24 @@ __device__ __forceinline__ void hit_terms(uint32_t cl, uint32_t ch,
   cfd = c;
 }
 
-// One tile of the bucket's entries in shared memory.
-struct Tile {
-  uint32_t lo[kTile];
-  uint32_t hi[kTile];
-  int occ[kTile];
-};
-
-__device__ __forceinline__ void load_tile(Tile& t, const unsigned long long* e,
-                                          const int* occ, int t0, int tn) {
-  for (int k = threadIdx.x; k < tn; k += kThreads) {
-    const unsigned long long v = e[t0 + k];
-    t.lo[k] = (uint32_t)v;
-    t.hi[k] = (uint32_t)(v >> 32);
-    t.occ[k] = occ[t0 + k];
+// The bucket scan's exact hit test of one pair from its packed words: at
+// most max_dist of the 20 positions mismatch, and no earlier slice has all
+// its raw XOR bits 0 (the width divides 32, so no slice straddles the two
+// words).
+__device__ __forceinline__ bool exact_hit_raw(unsigned long long e,
+                                              unsigned long long q, int s,
+                                              int width, int max_dist) {
+  const uint32_t xl = (uint32_t)e ^ (uint32_t)q;
+  const uint32_t xh = ((uint32_t)(e >> 32) ^ (uint32_t)(q >> 32)) & 0xFFu;
+  const uint32_t cl = (xl | (xl >> 1)) & 0x55555555u;
+  const uint32_t ch = (xh | (xh >> 1)) & 0x55u;
+  if (__popc(cl) + __popc(ch) > max_dist) return false;
+  const uint32_t wmask = (1u << width) - 1u;
+  for (int sp = 0; sp < s; ++sp) {
+    const int sh = sp * width;
+    if ((((sh < 32 ? xl : xh) >> (sh & 31)) & wmask) == 0u) return false;
   }
+  return true;
 }
 
 __device__ __forceinline__ void load_penalties(float* pen,
@@ -117,7 +155,200 @@ __device__ __forceinline__ void load_penalties(float* pen,
   for (int k = threadIdx.x; k < kPenalties; k += kThreads) pen[k] = g[k];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// What every warp of a block reads while it streams its bucket.
+struct Scan {
+  const unsigned long long* bucket;   // the bucket's packed entries
+  const int* occ;                     // their occurrences
+  int len;                            // the bucket's length
+  int s;                              // its slice
+  uint32_t low;                       // outside_slice's mask for slice s
+  uint32_t force;                     // exact_hit's mask (dense scan)
+  int width;                          // the raw dedup's width; 0: exact_hit
+  int max_dist;
+  int nlive;                          // live queries = columns 0..nlive-1
+  const int* slot_of;                 // column -> the block's slot
+  const unsigned long long* qcol;     // column -> query signature
+  double* mit;                        // slot -> f64 MIT sum (shared)
+  double* cfd;                        // slot -> f64 CFD sum (shared)
+  const float* mit_tab;
+  const float* pen;                   // shared
+  float pam;
+};
+
+// A warp's candidates of one m-tile (bit 4i + e of ``cand``: element e of
+// n-tile i; rows r0 and r0 + 8) through the exact test; each hit adds occ x
+// its terms to its slot's sums. A rolled loop: the candidate path stays
+// small and stays in the instruction cache.
+__device__ __forceinline__ void add_candidates(const Scan& k, uint32_t cand,
+                                               int r0, int t) {
+#pragma unroll 1
+  while (cand != 0u) {
+    const int bit = __ffs(cand) - 1;
+    cand &= cand - 1u;
+    const int r = r0 + 8 * ((bit >> 1) & 1);
+    const int col = 8 * (bit >> 2) + 2 * t + (bit & 1);
+    if (r >= k.len || col >= k.nlive) continue;
+    const unsigned long long e = k.bucket[r];
+    const unsigned long long q = k.qcol[col];
+    if (k.width ? !exact_hit_raw(e, q, k.s, k.width, k.max_dist)
+                : !exact_hit(e, q, k.force, k.max_dist))
+      continue;
+    const uint32_t q_lo = (uint32_t)q, q_hi = (uint32_t)(q >> 32) & 0xFFu;
+    const uint32_t e_lo = (uint32_t)e, e_hi = (uint32_t)(e >> 32) & 0xFFu;
+    const uint32_t xl = e_lo ^ q_lo, xh = e_hi ^ q_hi;
+    float mit, cfd;
+    hit_terms((xl | (xl >> 1)) & 0x55555555u, (xh | (xh >> 1)) & 0x55u,
+              q_lo, q_hi, e_lo, e_hi, k.mit_tab, k.pen, k.pam, mit, cfd);
+    const double w = (double)__ldg(k.occ + r);
+    const int slot = k.slot_of[col];
+    atomicAdd(k.mit + slot, (double)mit * w);
+    atomicAdd(k.cfd + slot, (double)cfd * w);
+  }
+}
+
+// The bucket against NT n-tiles of live columns (8 each), KS k32 steps
+// (2: K = 64, the positions outside slice s; 3: K = 96, all 20).
+template <int KS, int NT>
+__device__ __forceinline__ void stream_bucket(const Scan& k) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;          // rows g, g + 8; column g
+  const int t = lane & 3;
+
+  // B fragments: column g of n-tile i is live column 8i + g; per k-step
+  // ks the bases 2ks (b0) and 2ks + 1 (b1); with KS = 3, bf[i][4] the
+  // bases of position 16 + t (byte m: base m) and bf[i][5] the zero half.
+  // Every row has one base at position 0 (byte 0 of thread 0's
+  // registers), so max_dist + 1 taken from position 0's four weights
+  // starts every sum at -(max_dist + 1).
+  const uint32_t bias = (uint32_t)(k.max_dist + 1);
+  uint32_t bf[NT][2 * KS];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int col = 8 * i + g;
+    const bool live = col < k.nlive;
+    const unsigned long long q = live ? k.qcol[col] : 0ull;
+    uint32_t r[4];
+    onehot4(KS == 2 ? outside_slice(q, k.low) : (uint32_t)q, t, r);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t w = live ? r[b] ^ kOnes : 2u * kOnes;
+      bf[i][b] = t == 0 ? (w & ~0xFFu) | ((w - bias) & 0xFFu) : w;
+    }
+    if constexpr (KS == 3) {
+      const uint32_t code = (uint32_t)(q >> (32 + 2 * t)) & 3u;
+      bf[i][4] = live ? (1u << (8 * code)) ^ kOnes : 2u * kOnes;
+      bf[i][5] = 0u;
+    }
+  }
+  const int nb = (k.len + kBatch - 1) / kBatch;
+
+  // lane l holds entries l and l + 32 of batch bt; past the bucket, 0
+  unsigned long long nxt[2];
+  auto load = [&](int bt) {
+    const int r = bt * kBatch + lane;
+    nxt[0] = r < k.len ? __ldg(k.bucket + r) : 0ull;
+    nxt[1] = r + 32 < k.len ? __ldg(k.bucket + r + 32) : 0ull;
+  };
+  // the A fragments of the m-tile whose rows g and g + 8 lie at lanes src
+  // and src + 8 of (w, hi): two k-steps from the words w, and with KS = 3
+  // a third from the high bytes (its upper half a3[2], a3[3] stays 0)
+  uint32_t a[2][4];
+  uint32_t a3[4] = {0u, 0u, 0u, 0u};
+  auto fragments = [&](uint32_t w, uint32_t hi, int src) {
+    a_fragments(w, src, t, a);
+    if constexpr (KS == 3) {
+      a3[0] = 1u << (8 * ((__shfl_sync(kFull, hi, src) >> (2 * t)) & 3u));
+      a3[1] = 1u << (8 * ((__shfl_sync(kFull, hi, src + 8) >> (2 * t))
+                          & 3u));
+    }
+  };
+  int bt = warp;
+  if (bt < nb) load(bt);
+  for (; bt < nb; bt += kWarps) {
+    const uint32_t w0 = KS == 2 ? outside_slice(nxt[0], k.low)
+                                : (uint32_t)nxt[0];
+    const uint32_t w1 = KS == 2 ? outside_slice(nxt[1], k.low)
+                                : (uint32_t)nxt[1];
+    const uint32_t h0 = (uint32_t)(nxt[0] >> 32);
+    const uint32_t h1 = (uint32_t)(nxt[1] >> 32);
+    if (bt + kWarps < nb) load(bt + kWarps);
+    // m-tile m: entries 16m..16m+15 of the batch; its row g is at lane
+    // 16 (m & 1) + g of w0 (m < 2) or w1. The next m-tile's A fragments
+    // are built while this one's products are in flight.
+    fragments(w0, h0, g);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      int d[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        mma_first(d[i], a[0], bf[i][0], bf[i][1]);
+        mma_acc(d[i], a[1], bf[i][2], bf[i][3]);
+        if constexpr (KS == 3) mma_acc(d[i], a3, bf[i][4], bf[i][5]);
+      }
+      if (m < 3)
+        fragments(m < 1 ? w0 : w1, m < 1 ? h0 : h1, 16 * ((m + 1) & 1) + g);
+      if (__any_sync(kFull, or_tree<NT>(d) < 0)) {
+        uint32_t cand = 0;
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cand |= ((uint32_t)d[i][e] >> 31) << (4 * i + e);
+        add_candidates(k, cand, bt * kBatch + 16 * m + g, t);
+        __syncwarp();     // reconverge before the next mma.sync
+      }
+    }
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void stream_bucket_nt(const Scan& k, int nt) {
+  switch (nt) {
+    case 1: stream_bucket<KS, 1>(k); break;
+    case 2: stream_bucket<KS, 2>(k); break;
+    case 3: stream_bucket<KS, 3>(k); break;
+    case 4: stream_bucket<KS, 4>(k); break;
+    case 5: stream_bucket<KS, 5>(k); break;
+    case 6: stream_bucket<KS, 6>(k); break;
+    case 7: stream_bucket<KS, 7>(k); break;
+    case 8: stream_bucket<KS, 8>(k); break;
+    default: break;
+  }
+}
+
+// The block's bucket of slice s and what every block reads of it.
+__device__ __forceinline__ Scan scan_of(
+    const unsigned long long* entries, const int* occ, long long epad,
+    const long long* boff, const int* blen, long long sb, int s,
+    int max_dist, const float* mit_tab, const float* pen, float pam,
+    const int* slot_of, const unsigned long long* qcol,
+    double (&sums)[2][kSlots]) {
+  Scan k;
+  const long long base = (long long)s * epad + boff[sb];
+  k.bucket = entries + base;
+  k.occ = occ + base;
+  k.len = blen[sb];
+  k.s = s;
+  k.low = s < 5 ? (uint32_t)((1ull << (8 * s)) - 1ull) : 0xFFFFFFFFu;
+  // bytes 0..s-1 of the collapsed low word are the earlier slices; the
+  // others are forced nonzero so only those can test clean
+  k.force = ~k.low;
+  k.width = 0;
+  k.max_dist = max_dist;
+  k.nlive = 0;
+  k.slot_of = slot_of;
+  k.qcol = qcol;
+  k.mit = sums[0];
+  k.cfd = sums[1];
+  k.mit_tab = mit_tab;
+  k.pen = pen;
+  k.pam = pam;
+  return k;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 dense_scan_kernel(const unsigned long long* __restrict__ entries,
                   const int* __restrict__ occ, long long epad,
                   const long long* __restrict__ boff,
@@ -127,61 +358,59 @@ dense_scan_kernel(const unsigned long long* __restrict__ entries,
                   int max_dist, const float* __restrict__ mit_tab,
                   const float* __restrict__ pen_g, float pam,
                   double* __restrict__ out_mit, double* __restrict__ out_cfd) {
-  __shared__ Tile tile;
+  __shared__ int slot_of[kSlots];
+  __shared__ unsigned long long qcol[kSlots];
+  __shared__ double sums[2][kSlots];
   __shared__ float pen[kPenalties];
-  load_penalties(pen, pen_g);
+  __shared__ int warp_live[2];
 
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int s = blockIdx.z;
   const long long sb = (long long)s * B + blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = j < qb;
-  const int qid = in_range ? qsp[sb * qb + j] : n;
-  // padding slots (id n) read no signature and produce no hits
-  const bool active = qid >= 0 && qid < n;
-  uint32_t q_lo = 0u, q_hi = 0u;
-  if (active) {
-    const unsigned long long q = qsig[qid];
-    q_lo = (uint32_t)q;
-    q_hi = (uint32_t)(q >> 32) & 0xFFu;
-  }
-  // bytes 0..s-1 of the collapsed low word are the earlier slices; the
-  // others are forced nonzero so only those can test clean
-  const uint32_t force = ~(uint32_t)((1ull << (8 * s)) - 1ull);
+  const int j0 = blockIdx.x * kSlots;
+  const int slots = min(kSlots, qb - j0);
+  load_penalties(pen, pen_g);
+  Scan k = scan_of(entries, occ, epad, boff, blen, sb, s, max_dist, mit_tab,
+                   pen, pam, slot_of, qcol, sums);
 
-  const int len = blen[sb];
-  const long long base = (long long)s * epad + boff[sb];
-  double acc_mit = 0.0, acc_cfd = 0.0;
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int tn = min(kTile, len - t0);
-    __syncthreads();                         // last tile fully consumed
-    load_tile(tile, entries + base, occ + base, t0, tn);
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll 8
-    for (int k = 0; k < tn; ++k) {
-      const uint32_t e_lo = tile.lo[k], e_hi = tile.hi[k];
-      const uint32_t xl = e_lo ^ q_lo;
-      const uint32_t xh = (e_hi ^ q_hi) & 0xFFu;
-      const uint32_t cl = (xl | (xl >> 1)) & 0x55555555u;
-      const uint32_t ch = (xh | (xh >> 1)) & 0x55u;
-      if (__popc(cl) + __popc(ch) > max_dist) continue;
-      const uint32_t xb = cl | force;
-      if (((xb - 0x01010101u) & ~xb & 0x80808080u) != 0u) continue;
-      float mit, cfd;
-      hit_terms(cl, ch, q_lo, q_hi, e_lo, e_hi & 0xFFu, mit_tab, pen, pam,
-                mit, cfd);
-      const double w = (double)tile.occ[k];
-      acc_mit += (double)mit * w;
-      acc_cfd += (double)cfd * w;
-    }
+  // the block's live slots (query id in [0, n)) become columns 0..nlive-1
+  // in plan order; padding slots (id n) read no signature
+  int id = n;
+  if (tid < kSlots) {
+    if (tid < slots) id = qsp[sb * qb + j0 + tid];
+    sums[0][tid] = 0.0;
+    sums[1][tid] = 0.0;
   }
-  if (in_range) {
-    out_mit[sb * qb + j] = acc_mit;
-    out_cfd[sb * qb + j] = acc_cfd;
+  const bool live = id >= 0 && id < n;
+  const unsigned ballot = __ballot_sync(kFull, live);
+  if (warp < 2 && lane == 0) warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  k.nlive = warp_live[0] + warp_live[1];
+  if (live) {
+    const int col = (warp ? warp_live[0] : 0) +
+                    __popc(ballot & ((1u << lane) - 1u));
+    slot_of[col] = tid;
+    qcol[col] = qsig[id];
+  }
+  __syncthreads();
+
+  stream_bucket_nt<2>(k, k.len > 0 ? (k.nlive + 7) / 8 : 0);
+  __syncthreads();                           // every hit is in sums
+  if (tid < slots) {
+    out_mit[sb * qb + j0 + tid] = sums[0][tid];
+    out_cfd[sb * qb + j0 + tid] = sums[1][tid];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// KS k32 steps: 2 at w = 8 (K = 64), 3 at the other widths (K = 96); one
+// instance each, so each keeps its own register allocation. At K = 64 three
+// blocks share an SM (80 registers, no spill; a page's buckets hold few
+// queries, so more warps in flight hide the loads); at K = 96 two (128
+// registers; three would spill).
+template <int KS>
+__global__ void __launch_bounds__(kThreads, KS == 2 ? 3 : 2)
 bucket_scan_kernel(const unsigned long long* __restrict__ entries,
                    const int* __restrict__ occ, long long epad,
                    const long long* __restrict__ boff,
@@ -193,63 +422,40 @@ bucket_scan_kernel(const unsigned long long* __restrict__ entries,
                    const float* __restrict__ pen_g, float pam,
                    double* __restrict__ out_mit,
                    double* __restrict__ out_cfd) {
-  __shared__ Tile tile;
+  __shared__ int slot_of[kSlots];
+  __shared__ unsigned long long qcol[kSlots];
+  __shared__ double sums[2][kSlots];
   __shared__ float pen[kPenalties];
 
+  const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const long long sb = (long long)s * B + blockIdx.x;
   const int q0 = qoff[(long long)s * (B + 1) + blockIdx.x];
   const int nq = qoff[(long long)s * (B + 1) + blockIdx.x + 1] - q0;
-  if (nq <= 0) return;                       // uniform over the block
+  const int ngroups = (nq + kSlots - 1) / kSlots;
+  if ((int)blockIdx.z >= ngroups) return;    // uniform over the block
   load_penalties(pen, pen_g);
-  const int len = blen[sb];
-  const long long base = (long long)s * epad + boff[sb];
-  const uint32_t wmask = (1u << width) - 1u;
+  Scan k = scan_of(entries, occ, epad, boff, blen, sb, s, max_dist, mit_tab,
+                   pen, pam, slot_of, qcol, sums);
+  k.width = width;
+  if (tid < kSlots) slot_of[tid] = tid;
 
-  for (int g0 = 0; g0 < nq; g0 += kThreads) {
-    const int i = g0 + threadIdx.x;
-    const bool active = i < nq;
-    const long long at = (long long)s * n + q0 + i;
-    uint32_t q_lo = 0u, q_hi = 0u;
-    if (active) {
-      const unsigned long long q = qsig[qsorted[at]];
-      q_lo = (uint32_t)q;
-      q_hi = (uint32_t)(q >> 32) & 0xFFu;
+  // group grp: CSR positions q0 + 64 grp .. of the bucket, columns in order
+  for (int grp = blockIdx.z; grp < ngroups; grp += gridDim.z) {
+    const long long at0 = (long long)s * n + q0 + (long long)grp * kSlots;
+    k.nlive = min(kSlots, nq - grp * kSlots);
+    __syncthreads();                         // the last group is written
+    if (tid < kSlots) {
+      sums[0][tid] = 0.0;
+      sums[1][tid] = 0.0;
+      if (tid < k.nlive) qcol[tid] = qsig[qsorted[at0 + tid]];
     }
-    double acc_mit = 0.0, acc_cfd = 0.0;
-    for (int t0 = 0; t0 < len; t0 += kTile) {
-      const int tn = min(kTile, len - t0);
-      __syncthreads();                       // last tile fully consumed
-      load_tile(tile, entries + base, occ + base, t0, tn);
-      __syncthreads();
-      if (!active) continue;
-#pragma unroll 8
-      for (int k = 0; k < tn; ++k) {
-        const uint32_t e_lo = tile.lo[k], e_hi = tile.hi[k];
-        const uint32_t xl = e_lo ^ q_lo;
-        const uint32_t xh = (e_hi ^ q_hi) & 0xFFu;
-        const uint32_t cl = (xl | (xl >> 1)) & 0x55555555u;
-        const uint32_t ch = (xh | (xh >> 1)) & 0x55u;
-        if (__popc(cl) + __popc(ch) > max_dist) continue;
-        // an earlier slice whose raw XOR bits are all 0 matched exactly;
-        // the width divides 32, so no slice straddles the two words
-        bool seen = false;
-        for (int sp = 0; sp < s && !seen; ++sp) {
-          const int sh = sp * width;
-          seen = (((sh < 32 ? xl : xh) >> (sh & 31)) & wmask) == 0u;
-        }
-        if (seen) continue;
-        float mit, cfd;
-        hit_terms(cl, ch, q_lo, q_hi, e_lo, e_hi & 0xFFu, mit_tab, pen, pam,
-                  mit, cfd);
-        const double w = (double)tile.occ[k];
-        acc_mit += (double)mit * w;
-        acc_cfd += (double)cfd * w;
-      }
-    }
-    if (active) {
-      out_mit[at] = acc_mit;
-      out_cfd[at] = acc_cfd;
+    __syncthreads();
+    stream_bucket_nt<KS>(k, k.len > 0 ? (k.nlive + 7) / 8 : 0);
+    __syncthreads();                         // every hit is in sums
+    if (tid < k.nlive) {
+      out_mit[at0 + tid] = sums[0][tid];
+      out_cfd[at0 + tid] = sums[1][tid];
     }
   }
 }
@@ -271,7 +477,8 @@ extern "C" int crackling_dense_scan(
     float pam, void* out_mit, void* out_cfd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((qb + kThreads - 1) / kThreads, B, S);
+  if (max_dist < 0 || max_dist > 20) return (int)cudaErrorInvalidValue;
+  const dim3 grid((qb + kSlots - 1) / kSlots, B, S);
   dense_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const unsigned long long*>(entries),
       static_cast<const int*>(occ), epad,
@@ -294,8 +501,18 @@ extern "C" int crackling_bucket_scan(
     void* out_cfd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, S);
-  bucket_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (max_dist < 0 || max_dist > 20 || width < 2 || width > 16 || width % 2 ||
+      32 % width)
+    return (int)cudaErrorInvalidValue;
+  // as many blocks per bucket as an even spread of the page needs; a
+  // bucket with more groups loops over them
+  const long long per_bucket =
+      ((long long)n + (long long)kSlots * B - 1) / ((long long)kSlots * B);
+  const int z = (int)(per_bucket < 1 ? 1 : per_bucket > kMaxZ ? kMaxZ
+                                                              : per_bucket);
+  const dim3 grid(B, S, z);
+  auto kernel = width == 8 ? bucket_scan_kernel<2> : bucket_scan_kernel<3>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const unsigned long long*>(entries),
       static_cast<const int*>(occ), epad,
       static_cast<const long long*>(boff), static_cast<const int*>(blen),

@@ -43,3 +43,23 @@ def cli_device() -> str:
     ``cuda`` (the same override the JAX package's CLIs honour)."""
     return "cpu" if os.environ.get("CRACKLING_PLATFORM", "") == "cpu" \
         else "cuda"
+
+
+# scoreOfftargets' estimated scan work below which it scores in f64
+SMALL_SCORE_WORK = 5e8
+
+
+def score_offtargets_placement(est_items: float):
+    """``scoreOfftargets``' device and compute dtype by the JAX CLI's
+    precision rule (crackling_tpu/utils/cli.py:20-37, :153), kept on the
+    card: ``CRACKLING_PLATFORM=cpu`` -> the CPU in f64; unset or ``auto``
+    with an estimated scan work ``est_items`` (queries x slices x sites
+    per bucket) below 5e8 -> ``cuda`` in f64, whose printed scores are the
+    binary's; anything else -> ``cuda`` in TwoSum-compensated f32 (the
+    JAX CLI's accelerator f32). Returns (device, dtype)."""
+    want = os.environ.get("CRACKLING_PLATFORM", "") or "auto"
+    if want == "cpu":
+        return "cpu", torch.float64
+    if want == "auto" and est_items < SMALL_SCORE_WORK:
+        return "cuda", torch.float64
+    return "cuda", torch.float32

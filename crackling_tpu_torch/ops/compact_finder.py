@@ -222,32 +222,50 @@ def _lanes_of(regs_by_thread) -> torch.Tensor:
     return (regs[..., t, reg] >> (8 * m)) & 0xFF
 
 
+def onehot_lanes(word: torch.Tensor) -> torch.Tensor:
+    """(n,) 32-bit words of 16 positions -> (n, MMA_K) int64 lanes of
+    their one-hot rows, as the kernels build them (``onehot4`` in each
+    thread of a quad)."""
+    return _lanes_of([mma_registers(word, t) for t in range(4)])
+
+
+def weight_lanes(word: torch.Tensor, live: torch.Tensor,
+                 max_dist: int | None = None) -> torch.Tensor:
+    """(m,) 32-bit words of the slots' queries and their liveness -> (m,
+    MMA_K) int64 lanes (bytes 0..255) of the kernels' weight columns: 1 at
+    the lanes of the bases a live slot's query does not have (its
+    registers XOR 0x01010101), 2 at every lane of a padding slot; with
+    ``max_dist``, position 0's four weights lowered by ``max_dist + 1``
+    (modulo 256, the int8 bytes the kernels hold)."""
+    regs = [torch.where(live[:, None], mma_registers(word, t) ^ _ONES,
+                        2 * _ONES) for t in range(4)]
+    if max_dist is not None:
+        low = regs[0] & 0xFF
+        regs[0] = regs[0] - low + ((low - max_dist - 1) & 0xFF)
+    return _lanes_of(regs)
+
+
+def signed_columns(lanes: torch.Tensor) -> torch.Tensor:
+    """(m, K) int64 weight bytes -> (K, m) int8 columns."""
+    return torch.where(lanes > 127, lanes - 256, lanes).to(torch.int8).t() \
+        .contiguous()
+
+
 def mma_rows(sig: torch.Tensor, s: int) -> torch.Tensor:
     """(n,) int64 entry signatures of a bucket of slice ``s`` -> (n,
     MMA_K) int8: the A operand rows the kernel builds from packed words."""
-    w = mma_word(sig, s)
-    return _lanes_of([mma_registers(w, t) for t in range(4)]).to(torch.int8)
+    return onehot_lanes(mma_word(sig, s)).to(torch.int8)
 
 
 def mma_columns(q: torch.Tensor, s: int, live: torch.Tensor,
                 max_dist: int | None = None) -> torch.Tensor:
     """(m,) int64 query signatures of slots of slice ``s`` and their
-    liveness -> (MMA_K, m) int8 weight columns: 1 at the lanes of the
-    bases a live slot's query does not have (its registers XOR
-    0x01010101), 2 at every lane of a padding slot; their product with
-    :func:`mma_rows` is the distance outside slice ``s``. With
-    ``max_dist``, the kernel's columns: position 0's four weights lowered
-    by ``max_dist + 1`` (every row has exactly one base there), so every
-    product is the distance less ``max_dist + 1``."""
-    w = mma_word(q, s)
-    regs = [torch.where(live[:, None], mma_registers(w, t) ^ _ONES,
-                        2 * _ONES) for t in range(4)]
-    if max_dist is not None:
-        low = regs[0] & 0xFF
-        regs[0] = regs[0] - low + ((low - max_dist - 1) & 0xFF)
-    cols = _lanes_of(regs)
-    return torch.where(cols > 127, cols - 256, cols).to(torch.int8).t() \
-        .contiguous()
+    liveness -> (MMA_K, m) int8 weight columns (:func:`weight_lanes`);
+    their product with :func:`mma_rows` is the distance outside slice
+    ``s``. With ``max_dist``, the kernel's columns: every row has exactly
+    one base at position 0, so every product is the distance less
+    ``max_dist + 1``."""
+    return signed_columns(weight_lanes(mma_word(q, s), live, max_dist))
 
 
 def mma_candidates(rows: torch.Tensor, cols: torch.Tensor,

@@ -31,6 +31,14 @@ a CUDA tensor and runs its plain PyTorch version on a CPU tensor; nothing
 else, no fallback from one to the other. The plain versions enumerate the
 pairs with ``compact_finder.bucket_entry_pairs``; kernel and plain
 version differ only in the order of their f64 sums.
+
+The kernels screen every pair by an int8 tensor-core product of one-hot
+entry rows, built in registers from the packed words, by the queries'
+weight columns, and score only the pairs the screen passes, after the
+exact test. :func:`scan_rows` and :func:`scan_columns` build the same
+operands in plain PyTorch, lane for lane: K = 64 (the 16 positions
+outside the bucket's slice, ``compact_finder.mma_rows``) at w = 8, and
+K = 96 (all 20 positions) at the bucket scan's other widths.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ import torch
 
 from .bits import (SIG40, collapse_pairs, earlier_slice_clean,
                    earlier_slice_clean_raw, popcount)
-from .compact_finder import bucket_entry_pairs, slot_entry_pairs
+from .compact_finder import (MMA_K, bucket_entry_pairs, mma_columns,
+                             mma_rows, onehot_lanes, signed_columns,
+                             slot_entry_pairs, weight_lanes)
 from .issl_compact import ScoreTables, pair_scores
 from .kernel_build import KernelLibrary
 
@@ -283,3 +293,61 @@ def bucket_scan_plain(entries: torch.Tensor, occ: torch.Tensor,
 
 
 bucket_scan_plain.calls = 0
+
+
+# -- the kernels' operands, in plain PyTorch ------------------------------
+
+ALL_K = 96            # product lanes at widths other than 8: 20 x 4 + 16
+_ONES = 0x01010101
+
+
+def _register_bytes(regs: torch.Tensor) -> torch.Tensor:
+    """(n, 4) 32-bit registers of threads t = 0..3 -> (n, 16) lanes
+    ``4 t + m`` (byte ``m`` of thread ``t``'s register)."""
+    m = torch.arange(4, device=regs.device)
+    return ((regs[:, :, None] >> (8 * m)) & 0xFF).reshape(-1, 16)
+
+
+def _high_codes(sig: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 signatures -> (n, 4) the codes of positions 16..19."""
+    t = torch.arange(4, device=sig.device)
+    return (sig[:, None] >> (32 + 2 * t)) & 3
+
+
+def scan_rows(sig: torch.Tensor, s: int, width: int) -> torch.Tensor:
+    """(n,) int64 entry signatures of a bucket of slice ``s`` of an index
+    of slice width ``width`` -> the A rows the full-scan kernels build
+    from packed words, int8: at w = 8 (n, MMA_K), the 16 positions outside
+    slice ``s`` (``compact_finder.mma_rows``); else (n, ALL_K), all 20
+    positions: lanes 0-63 positions 0-15 (the low word) in ``mma_rows``'
+    layout, lane ``64 + 4 t + m`` 1 iff position ``16 + t`` has base
+    ``m`` (byte ``m`` of the register ``1 << 8 code``), lanes 80-95 0."""
+    if width == 8:
+        return mma_rows(sig, s)
+    high = _register_bytes(1 << (8 * _high_codes(sig)))
+    return torch.cat([onehot_lanes(sig & 0xFFFFFFFF), high,
+                      torch.zeros_like(high)], 1).to(torch.int8)
+
+
+def scan_columns(q: torch.Tensor, s: int, width: int, live: torch.Tensor,
+                 max_dist: int | None = None) -> torch.Tensor:
+    """(m,) int64 query signatures of slice ``s`` and their liveness ->
+    the kernels' (K, m) int8 weight columns for :func:`scan_rows`: 1 at
+    the lanes of the bases a live query does not have, 2 at every lane of
+    a padding column (lanes 80-95: 0); with ``max_dist``, position 0's
+    four weights lowered by ``max_dist + 1``, so a row's product is its
+    distance less ``max_dist + 1`` (at w = 8 the distance outside slice
+    ``s``, which is the whole distance within a bucket)."""
+    if width == 8:
+        return mma_columns(q, s, live, max_dist)
+    regs = torch.where(live[:, None], (1 << (8 * _high_codes(q))) ^ _ONES,
+                       2 * _ONES)
+    high = _register_bytes(regs)
+    return signed_columns(torch.cat([
+        weight_lanes(q & 0xFFFFFFFF, live, max_dist), high,
+        torch.zeros_like(high)], 1))
+
+
+def scan_k(width: int) -> int:
+    """The kernels' product depth at slice width ``width``."""
+    return MMA_K if width == 8 else ALL_K

@@ -13,7 +13,7 @@ import argparse
 import os
 import sys
 
-from ..device import cli_device
+from ..device import cli_device, score_offtargets_placement
 
 
 def main_crackling(argv=None):
@@ -108,8 +108,11 @@ def main_score_offtargets(argv=None):
 
     Scores with the general exact engine (``ops/issl_flat.py``) and its
     early-exit emulation, as the JAX CLI does: every query carries the
-    binary's scores, early-exited ones included; f64 on the CPU,
-    TwoSum-compensated f32 on the GPU."""
+    binary's scores, early-exited ones included. Device and precision
+    follow the JAX CLI's rule on the estimated scan work
+    (``device.score_offtargets_placement``): a small workload scores in
+    f64 on the GPU, a large one in TwoSum-compensated f32;
+    ``CRACKLING_PLATFORM=cpu`` scores in f64 on the CPU."""
     parser = argparse.ArgumentParser()
     parser.add_argument("issltable")
     parser.add_argument("queryfile")
@@ -121,7 +124,7 @@ def main_score_offtargets(argv=None):
 
     from ..codec import strings_to_sigs
     from ..index import load_native, read_reference_issl
-    from ..ops.issl_flat import IsslScorer, default_dtype
+    from ..ops.issl_flat import IsslScorer
 
     if args.issltable.endswith(".npz") or os.path.isdir(args.issltable):
         index = load_native(args.issltable)
@@ -130,10 +133,12 @@ def main_score_offtargets(argv=None):
     with open(args.queryfile) as fp:
         seqs = fp.read().split()
     sigs = strings_to_sigs(seqs, index.seq_length)
-    device = cli_device()
+    est = len(seqs) * index.slice_count * (index.num_sites
+                                           / index.bucket_count)
+    device, dtype = score_offtargets_placement(est)
     scorer = IsslScorer(index, max_dist=args.max_dist, method=args.method,
-                        threshold=args.threshold,
-                        dtype=default_dtype(device), device=device)
+                        threshold=args.threshold, dtype=dtype,
+                        device=device)
     mit, cfd = scorer.score(sigs)
     calc_mit = args.method in ("mit", "and", "or", "avg")
     calc_cfd = args.method in ("cfd", "and", "or", "avg")

@@ -13,7 +13,12 @@ seconds). Tolerances:
 * the port's sums against JAX's (bf16-split log-matmuls, f32 sums) at
   JAX's own tier, rtol 2e-5 / atol 1e-5 (tests/test_dense.py), and
   against ``oracle.score_bruteforce`` (f64) at rtol 1e-5;
-* paging and the ``qb_cap`` split against one page: rtol 1e-12.
+* paging and the ``qb_cap`` split against one page: rtol 1e-12;
+* the kernel's flow emulated on the CPU (``test_torch_fullscan_mma.py``:
+  tensor-core distance screen, exact re-test, f32 terms of the hits, f64
+  sums) against the plain version: rtol 1e-12; run inside the engine,
+  against JAX's sums at JAX's dense tier, rtol 2e-5 / atol 1e-5 (its
+  bf16-split sums sit up to 2.7e-6 from the exact ones on this data).
 """
 
 import numpy as np
@@ -24,12 +29,14 @@ from crackling_tpu.ops.issl_dense import DenseIsslScorer as JaxDense
 from crackling_tpu.ops.oracle import score_bruteforce
 from crackling_tpu.ops.tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                                       cfd_pos_penalties, mit_dense_table)
-from crackling_tpu_torch.ops.fullscan import dense_scan
+from crackling_tpu_torch.ops import issl_dense
+from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
 from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
 from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
 from test_band_probe import DENSE_MARGIN, adversarial  # noqa: F401
 from test_dense import data  # noqa: F401  (shared fixture)
 from test_torch_compact import port_index
+from test_torch_fullscan_mma import emulate_dense_scan
 
 KW = dict(query_page=64, chunk=1024)
 
@@ -132,6 +139,36 @@ def test_dense_pages_reproduce_one_page(data, case):  # noqa: F811
                           **kw).score_sums(queries)
     for g, w in zip(got, one):
         np.testing.assert_allclose(g, w, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("max_dist", [4, 2, 0])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_kernel_emulation_matches_plain(data, max_dist, ragged):  # noqa: F811
+    index, queries = data
+    sc = DenseIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
+    qb, needed = plan_query_occupancy(queries, sc.S, sc.B, 8, sc.qb_cap)
+    if ragged:                      # a slot count that is not a multiple of 8
+        qb = needed + 1 if needed % 8 == 0 else needed
+    q_sig = sc.query_tensor(queries)
+    args = (sc.entries, sc.occ, sc.bucket_offsets, sc.bucket_lens, q_sig,
+            sc.plan(q_sig, qb))
+    kw = dict(max_dist=max_dist, tabs=sc.tables)
+    got = emulate_dense_scan(*args, **kw)
+    want = dense_scan_plain(*args, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
+    assert (want[1] > 0).sum() >= len(queries) // 4
+
+
+def test_kernel_emulation_in_engine_matches_jax(data, jax_sums,  # noqa: F811
+                                                monkeypatch):
+    index, queries = data
+    monkeypatch.setattr(issl_dense, "dense_scan", emulate_dense_scan)
+    got = DenseIsslScorer(port_index(index), max_dist=4, device="cpu",
+                          **KW).score_sums(queries)
+    for g, w in zip(got, jax_sums):
+        np.testing.assert_allclose(g, w, rtol=2e-5, atol=1e-5)
+    assert (got[1] > 0).sum() > len(queries) // 2
 
 
 def test_adversarial_deviation_within_band_margin(adversarial):  # noqa: F811

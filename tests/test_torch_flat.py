@@ -7,7 +7,9 @@ seed), handed to both packages through ``convert.index_from_arrays``.
 Tolerances are test_scorer.py's: f64 sums and scores within rtol 1e-12;
 f32 sums within rtol 2e-6 of the brute-force f64 sums and f32 verdicts
 identical. The CLI prints ``%f`` of f64 scores in both packages, so its
-lines must be identical.
+lines must be identical; its device and precision follow the JAX CLI's
+rule on the estimated scan work, kept on the card (checked for every
+``CRACKLING_PLATFORM`` value on both sides of the 5e8 limit).
 """
 
 import numpy as np
@@ -17,6 +19,8 @@ import torch
 from crackling_tpu.index import build_index as jax_build_index
 from crackling_tpu.ops.issl_jax import IsslScorer as JaxScorer
 from crackling_tpu.ops.oracle import score_bruteforce, score_exact
+from crackling_tpu_torch.device import score_offtargets_placement
+from crackling_tpu_torch.ops import issl_flat
 from crackling_tpu_torch.ops.issl_flat import IsslScorer, default_dtype
 from crackling_tpu_torch.pipeline.run import verdicts
 from test_scorer import fixture_data  # noqa: F401  (shared fixture)
@@ -136,3 +140,58 @@ def test_score_offtargets_cli_matches_jax(fixture_data, tmp_path,  # noqa: F811
     got = capsys.readouterr().out.splitlines()
     assert len(got) == len(queries)
     assert got == want
+
+
+@pytest.mark.parametrize("platform", [None, "auto", "cpu", "cuda", "tpu"])
+@pytest.mark.parametrize("est", [2.0e8, 4.99e8, 5e8, 3.0e9])
+def test_score_offtargets_precision_rule(monkeypatch, platform, est):
+    """The JAX CLI scores a workload under 5e8 in f64 unless the platform
+    is forced (crackling_tpu/utils/cli.py:20-37); the port keeps that
+    precision and keeps the card: only ``cpu`` asks for the CPU."""
+    if platform is None:
+        monkeypatch.delenv("CRACKLING_PLATFORM", raising=False)
+    else:
+        monkeypatch.setenv("CRACKLING_PLATFORM", platform)
+    small = platform in (None, "auto") and est < 5e8
+    want = (("cpu", torch.float64) if platform == "cpu"
+            else ("cuda", torch.float64 if small else torch.float32))
+    assert score_offtargets_placement(est) == want
+
+
+def test_score_offtargets_cli_small_work_in_f64(fixture_data,  # noqa: F811
+                                                tmp_path, monkeypatch,
+                                                capsys):
+    """With CRACKLING_PLATFORM unset, the CLI estimates the work as the JAX
+    CLI does (queries x slices x sites / buckets), asks for the card in
+    f64 for this small workload, and (run here on the CPU in that dtype)
+    prints the JAX CLI's lines."""
+    from crackling_tpu.codec import sigs_to_strings
+    from crackling_tpu.index import write_reference_issl
+    from crackling_tpu.utils import cli as jax_cli
+    from crackling_tpu_torch.utils import cli as port_cli
+
+    index, queries = fixture_data
+    issl = tmp_path / "t.issl"
+    write_reference_issl(index, str(issl))
+    qfile = tmp_path / "q.txt"
+    qfile.write_text("".join(s + "\n" for s in sigs_to_strings(queries, 20)))
+    asked = []
+
+    class OnTheCpu(IsslScorer):
+        def __init__(self, index, *, dtype, device, **kw):
+            asked.append((device, dtype))
+            super().__init__(index, dtype=dtype, device="cpu", **kw)
+
+    monkeypatch.setattr(issl_flat, "IsslScorer", OnTheCpu)
+    monkeypatch.delenv("CRACKLING_PLATFORM", raising=False)
+    est = len(queries) * index.slice_count * (index.num_sites
+                                              / index.bucket_count)
+    assert est < 5e8
+    argv = [str(issl), str(qfile), "4", "75", "and"]
+    capsys.readouterr()
+    jax_cli.main_score_offtargets(argv)
+    want = capsys.readouterr().out.splitlines()
+    port_cli.main_score_offtargets(argv)
+    got = capsys.readouterr().out.splitlines()
+    assert asked == [("cuda", torch.float64)]
+    assert got == want and len(got) == len(queries)

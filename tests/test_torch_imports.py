@@ -1,5 +1,5 @@
-"""The PyTorch package, chip_smoke.py and finder_variants.py stand alone:
-no JAX, nothing of ``crackling_tpu``.
+"""The PyTorch package, chip_smoke.py, finder_variants.py and
+fullscan_variants.py stand alone: no JAX, nothing of ``crackling_tpu``.
 
 Checked in a subprocess, because this test process already imported jax
 (tests/conftest.py). The same subprocess checks that the entry points
@@ -24,6 +24,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     mods.append(m.name)
 import chip_smoke  # noqa: F401  (the GPU smoke script, same rule)
 import finder_variants  # noqa: F401  (the kernel variants, same rule)
+import fullscan_variants  # noqa: F401  (full-scan variants, same rule)
 leaked = sorted(k for k in sys.modules
                 if k == "jax" or k.startswith("jax.") or k == "jaxlib"
                 or k == "crackling_tpu" or k.startswith("crackling_tpu."))

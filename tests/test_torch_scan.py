@@ -10,7 +10,11 @@ mode, once per index. Tolerances: the plain per-position sums against a
 numpy pair loop that forms the same f32 terms, rtol 1e-12; the port's
 sums against JAX's (f32 sums) and against ``oracle.score_bruteforce``
 (f64) at JAX's tier, rtol 2e-6 / atol 1e-6 (tests/test_pallas.py); a
-partial page against the full one, rtol 1e-12.
+partial page against the full one, rtol 1e-12; the kernel's flow emulated
+on the CPU (``test_torch_fullscan_mma.py``: tensor-core distance screen
+at K = 64 or 96, exact re-test, f32 terms of the hits, f64 sums) against
+the plain version, rtol 1e-12, and, run inside the engine, against JAX's
+sums at JAX's tier.
 """
 
 import numpy as np
@@ -20,11 +24,13 @@ import torch
 from crackling_tpu.index import build_index
 from crackling_tpu.ops.issl_pallas import PallasIsslScorer
 from crackling_tpu.ops.oracle import score_bruteforce
-from crackling_tpu_torch.ops.fullscan import bucket_scan
+from crackling_tpu_torch.ops import issl_scan
+from crackling_tpu_torch.ops.fullscan import bucket_scan, bucket_scan_plain
 from crackling_tpu_torch.ops.issl_scan import ScanIsslScorer
 from test_pallas import data  # noqa: F401  (shared fixture)
 from test_torch_compact import port_index
 from test_torch_dense import bucket_entries, numpy_pair_sums
+from test_torch_fullscan_mma import emulate_bucket_scan
 
 JAX_KW = dict(query_page=32, superchunk=1024, interpret=True)
 
@@ -93,6 +99,33 @@ def test_scan_partial_page(data):  # noqa: F811
     m, c = sc.score_sums(queries)
     np.testing.assert_allclose(m5, m[:5], rtol=1e-12, atol=0)
     np.testing.assert_allclose(c5, c[:5], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("max_dist", [4, 2, 0])
+def test_kernel_emulation_matches_plain(data, width, max_dist):  # noqa: F811
+    index, queries = _width(data, width)
+    sc = ScanIsslScorer(port_index(index), max_dist=4, device="cpu")
+    q_sig = sc.query_tensor(queries)
+    args = (sc.entries, sc.occ, sc.bucket_offsets, sc.bucket_lens, q_sig,
+            *sc.plan(q_sig))
+    kw = dict(slice_width=width, max_dist=max_dist, tabs=sc.tables)
+    got = emulate_bucket_scan(*args, **kw)
+    want = bucket_scan_plain(*args, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
+    assert (want[1] > 0).sum() >= len(queries) // 4
+
+
+def test_kernel_emulation_in_engine_matches_jax(data, jax_sums,  # noqa: F811
+                                                monkeypatch):
+    index, queries = data
+    monkeypatch.setattr(issl_scan, "bucket_scan", emulate_bucket_scan)
+    got = ScanIsslScorer(port_index(index), max_dist=4, query_page=32,
+                         device="cpu").score_sums(queries)
+    for g, w in zip(got, jax_sums):
+        np.testing.assert_allclose(g, w, rtol=2e-6, atol=1e-6)
+    assert (got[1] > 0).sum() >= 24
 
 
 def _straddling_world():
