@@ -9,7 +9,8 @@ Phases, each fatal on failure:
 1. build the four kernel libraries (nvcc, sm_90a: the compact finder,
    the one-hot compact finder, the neighbour finder and the full-scan
    scorers) and the native host library (g++) from the package's
-   sources, in parallel; print the card;
+   sources, in parallel; print the card and each kernel's ``ptxas``
+   registers, shared memory and spills by kernel name;
 2. hold the compact finder kernel (int8 tensor-core distance over one-hot
    rows built from the packed lists) against its plain PyTorch version,
    cell for cell (exact), on a small index (max-distance 4, 0 and 2, and
@@ -24,21 +25,29 @@ Phases, each fatal on failure:
    for ``and``); then profile one warm page (device busy share, per-span
    device time);
 3b. hold the one-hot compact finder kernel (tensor-core int8 ``mma``) against
-    its plain version, cell for cell (exact), on the small index, the
-    skewed index and 16 buckets of the 65,536-query page, then against
+    its plain version, cell for cell (exact), on the small index
+    (max-distance 4, 0 and 2, and a plan whose qb is not a multiple of
+    8), the skewed index and 16 buckets of the 65,536-query page, then against
     the packed compact finder kernel on the whole page (every cell
     equal: two independent tensor-core designs, one over planes, one
     over packed words);
 3c. the compact engine with the one-hot finder on a 65,536-query and a
     4,096-query page of the 27 Mbp index: the one-hot and the packed
     finder kernels timed in turns on the same page (CUDA events), both
-    finders' bounds with their terms, the page wall time and guides/s
-    with each finder, the planes' bytes and build time;
-4. hold the neighbour finder kernel (the MXU engine's) against its plain
-   version, cell for cell (exact), on the small index, the skewed index
-   and 16 buckets of a 32,768-query page of the 27 Mbp index;
+    finders' bounds with their terms, the one-hot kernel's blocks per
+    SM, the page wall time and guides/s with each finder, the planes'
+    bytes and build time;
+4. hold the neighbour finder kernel (the MXU engine's, an int8
+   tensor-core distance screen: K = 64 at slice width 8, 96 at the
+   others) against its plain version, cell for cell (exact), on the small
+   index (max-distance 4, 0, 1 and 2, and a plan whose qb is not a
+   multiple of 8), the small index at slice width 4 (the K = 96 instance)
+   and at seq_length 16, the skewed index and 16 buckets of a
+   32,768-query page of the 27 Mbp index;
 5. score that page with the MXU engine: finder and decode times (CUDA
-   events), host plan, self-lookup and replay times, page wall time, and
+   events; the finder also on a 2-query page, the hybrid's re-score
+   size, both with their bound's terms), host plan, self-lookup and
+   replay times, page wall time, and
    a 2,048-query sample ``np.array_equal`` to the native exact scorer
    (both f64, the reference's scan order and early exit); profile one
    warm page; and on the small index all five methods
@@ -134,19 +143,20 @@ PACKED_K = 64
 PACKED_OR_OPS_PER_PAIR = 0.5
 PACKED_BUILD_OPS_PER_ENTRY = 24
 PACKED_SLOT_GROUP = 64
-# ... and of the neighbour finder's: the same and a subtract, for the
-# 1..max_dist range test
+# ... and of the neighbour finder's scalar design: the same and a
+# subtract, for the 1..max_dist range test (its "alu_13op" term, kept for
+# history); its tensor-core design has the full-scan scorers' screen and
+# each candidate ~16 operations (the re-test, the cell, two atomics)
 MXU_OPS_PER_PAIR = 13
-# the one-hot finder's bound: per pair, 2 x 96 int8 operations on the
-# tensor cores (the distance product, K = 80 lanes padded to 96) and ~2
-# epilogue operations (a compare and its share of the vote's ORs); the
-# planes at 80 B per entry
+MXU_CANDIDATE_OPS = 16
+# the one-hot finder's bound: per live pair, 2 x 64 int8 operations on the
+# tensor cores (the four 16-byte pieces of a row outside the bucket's
+# slice) and half an epilogue operation (the OR fold); the planes at 64
+# streamed bytes per entry
 H100_INT8_OPS_PER_S = 1979e12
+ONEHOT_K = 64
+ONEHOT_ROW_BYTES = 64
 ONEHOT_LANES = 80
-ONEHOT_K = 96
-ONEHOT_EPILOGUE_OPS_PER_PAIR = 2
-# the one-hot kernel's entry tile (csrc/compact_onehot.cu kTileRows)
-ONEHOT_TILE_ROWS = 256
 # the small page of the one-hot comparison
 SMALL_PAGE = 4096
 # the full-scan scorers' bound: their int8 screen is the packed finder's
@@ -352,11 +362,34 @@ def bench_dataset():
 # -- phases ---------------------------------------------------------------
 
 
-def ptxas_lines(report):
-    """The lines of nvcc's ``-Xptxas -v`` report that name each kernel and
-    give its registers, shared memory and spills."""
-    return [ln.strip() for ln in report.splitlines()
-            if "entry function" in ln or "registers" in ln or "spill" in ln]
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled name
+    (``c++filt`` where it exists), e.g. ``mxu_finder_kernel<2>``."""
+    import re
+
+    name = mangled
+    if shutil.which("c++filt"):
+        res = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True)
+        name = res.stdout.strip() or mangled
+    m = re.search(r"(\w+_kernel(?:<[^>(]*>)?)\(", name)
+    return m.group(1) if m else name
+
+
+def ptxas_by_kernel(report):
+    """The ``-Xptxas -v`` report per kernel: {name: [registers / shared
+    memory line, spill line]}."""
+    import re
+
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def phase_build():
@@ -371,10 +404,9 @@ def phase_build():
         libs = [k.result() for k in kerns]
         if host.result() is None:
             fail("the native host library did not build (g++)")
-    ptxas = {src: ptxas_lines(lib.with_suffix(".log").read_text())
-             for src, lib in zip(sources, libs)}
     emit({"phase": "build", "kernel_libraries": [p.name for p in libs],
-          "ptxas": ptxas})
+          "ptxas": {src: ptxas_by_kernel(lib.with_suffix(".log").read_text())
+                    for src, lib in zip(sources, libs)}})
 
 
 def finder_inputs(scorer, queries, qb=None):
@@ -641,20 +673,22 @@ def finder_diff(what, got, want):
     return err
 
 
-def onehot_args(scorer, q, qsp, blen=None):
+def onehot_args(scorer, q, qsp, blen=None, max_dist=None):
     return ((scorer.planes, scorer.bucket_offsets,
              scorer.bucket_lens if blen is None else blen, q, qsp),
             dict(chunk=scorer.chunk, nchmax=scorer._nchmax,
-                 superchunk=scorer.superchunk, max_dist=scorer.max_dist))
+                 superchunk=scorer.superchunk,
+                 max_dist=scorer.max_dist if max_dist is None
+                 else max_dist))
 
 
-def compare_onehot(scorer, q, qsp, blen=None):
+def compare_onehot(scorer, q, qsp, blen=None, max_dist=None):
     """One-hot finder kernel vs its plain version on the same device
     tensors; exact."""
     from crackling_tpu_torch.ops.compact_onehot import (
         compact_finder_onehot, compact_finder_onehot_plain)
 
-    args, kw = onehot_args(scorer, q, qsp, blen)
+    args, kw = onehot_args(scorer, q, qsp, blen, max_dist)
     got = compact_finder_onehot(*args, **kw)
     want = compact_finder_onehot_plain(*args, **kw)
     sync(q.device)
@@ -673,19 +707,27 @@ def onehot_scorer(index, dev, **kw):
 
 
 def phase_onehot_kernel_vs_plain(dev, bench_scorer, bench_queries):
-    """The one-hot kernel against its plain version (small, skewed, 16
-    buckets of the page), then against the packed kernel on the whole
-    page; returns the largest difference (0)."""
+    """The one-hot kernel against its plain version (small at
+    max-distance 4, 0 and 2 and with a ragged qb, skewed, 16 buckets of
+    the page), then against the packed kernel on the whole page; returns
+    the largest difference (0)."""
     from crackling_tpu_torch.ops.compact_finder import compact_finder
     from crackling_tpu_torch.ops.compact_onehot import compact_finder_onehot
 
     errs = []
     index, queries = small_world()
     sc = onehot_scorer(index, dev, chunk=1024)
-    e, hits = compare_onehot(sc, *finder_inputs(sc, queries))
+    inputs = finder_inputs(sc, queries)
+    for max_dist in (4, 0, 2):
+        e, hits = compare_onehot(sc, *inputs, max_dist=max_dist)
+        errs.append(e)
+        emit({"phase": "onehot_kernel_vs_plain", "input": "small",
+              "max_dist": max_dist, "hits": hits, "max_abs_err": e})
+    q, qsp = finder_inputs(sc, queries, ragged_qb(sc, queries))
+    e, hits = compare_onehot(sc, q, qsp)
     errs.append(e)
-    emit({"phase": "onehot_kernel_vs_plain", "input": "small", "hits": hits,
-          "max_abs_err": e})
+    emit({"phase": "onehot_kernel_vs_plain", "input": "small, ragged qb",
+          "qb": qsp.shape[2], "hits": hits, "max_abs_err": e})
 
     index, queries = skewed_world()
     sc = onehot_scorer(index, dev, chunk=1024)
@@ -729,24 +771,30 @@ def phase_onehot_kernel_vs_plain(dev, bench_scorer, bench_queries):
 
 def onehot_bound_ms(scorer, q, qsp, C):
     """Least time for the one-hot finder's work on this page: the largest
-    of its tensor operations over the int8 peak, its epilogue operations
-    over the ALU peak (both over live (slot, entry) pairs) and its bytes over
-    HBM bandwidth: the plane rows the kernel streams (each bucket with a
-    live slot, in whole entry tiles, once), the plan, the queries, the
-    offsets and the output cells."""
+    of its tensor operations (2 x 64 per live (slot, entry) pair: the four
+    pieces of a row outside the bucket's slice) over the int8 peak, its
+    epilogue operations (the OR fold of every sum) over the ALU peak and
+    its bytes over HBM bandwidth: the 64 bytes of each plane row of a
+    bucket with a live slot that the product needs, the plan, the queries,
+    the offsets and the output cells. Beside them, not in the bound,
+    "bytes_whole_rows": the same with whole 80-byte rows, which is what
+    HBM's 32-byte sectors move whichever pieces of a row are read."""
     n = q.numel()
     qcount = ((qsp >= 0) & (qsp < n)).sum(-1).long()
     blen = scorer.bucket_lens.long()
     pairs = int((blen * qcount).sum())
     S, B, qb = qsp.shape
-    tiles = -(-blen // ONEHOT_TILE_ROWS) * (qcount > 0)
-    nbytes = (int(tiles.sum()) * ONEHOT_TILE_ROWS * ONEHOT_LANES
-              + qsp.numel() * 4 + n * 8 + S * B * 12 + S * B * C * qb * 20)
+    rows = int((blen * (qcount > 0)).sum())
+    nbytes = (rows * ONEHOT_ROW_BYTES + qsp.numel() * 4 + n * 8
+              + S * B * 12 + S * B * C * qb * 20)
     terms = {"tensor": pairs * 2 * ONEHOT_K / H100_INT8_OPS_PER_S,
-             "operations": pairs * ONEHOT_EPILOGUE_OPS_PER_PAIR
+             "operations": pairs * PACKED_OR_OPS_PER_PAIR
              / H100_ALU_OPS_PER_S,
              "bytes": nbytes / H100_BYTES_PER_S}
     by = max(terms, key=terms.get)
+    terms["bytes_whole_rows"] = (nbytes + rows * (ONEHOT_LANES
+                                                  - ONEHOT_ROW_BYTES)) \
+        / H100_BYTES_PER_S
     return terms[by] * 1e3, by, pairs, {k: v * 1e3 for k, v in terms.items()}
 
 
@@ -756,8 +804,11 @@ def phase_onehot_page(dev, sc, queries, size, card):
     finder's bound and plain time, the page with each finder, the planes'
     bytes and build time."""
     from crackling_tpu_torch.ops.compact_finder import compact_finder
+    import torch
+
     from crackling_tpu_torch.ops.compact_onehot import (
-        compact_finder_onehot, compact_finder_onehot_plain, onehot_planes)
+        blocks_per_sm, compact_finder_onehot, compact_finder_onehot_plain,
+        onehot_planes)
     from crackling_tpu_torch.ops.issl_compact import normalize_caps
 
     page = queries[:size]
@@ -805,6 +856,9 @@ def phase_onehot_page(dev, sc, queries, size, card):
           "packed_finder_ms": ms["packed"], "onehot_plain_ms": plain_ms,
           "onehot_bound_ms": bound_ms, "onehot_bound_by": bound_by,
           "onehot_bound_terms_ms": terms,
+          "onehot_blocks_per_sm": (blocks_per_sm(int(qsp.shape[2]),
+                                                 torch.device(dev))
+                                   if torch_is_cuda(dev) else None),
           "packed_bound_ms": packed_bound[0],
           "packed_bound_by": packed_bound[1],
           "packed_bound_terms_ms": packed_bound[3],
@@ -817,7 +871,7 @@ def phase_onehot_page(dev, sc, queries, size, card):
                 bound_by="bytes" if bound_by == "bytes" else "operations")
 
 
-def compare_mxu(eng, q, qsp, blen=None):
+def compare_mxu(eng, q, qsp, blen=None, max_dist=None):
     """Neighbour finder kernel vs its plain version on the same device
     tensors; exact."""
     from crackling_tpu_torch.ops.mxu_finder import (mxu_finder,
@@ -825,7 +879,8 @@ def compare_mxu(eng, q, qsp, blen=None):
 
     args = (eng.entries, eng.bucket_offsets,
             eng.bucket_lens if blen is None else blen, q, qsp)
-    kw = dict(segw=eng.segw, nseg=eng.nseg, max_dist=eng.max_dist,
+    kw = dict(segw=eng.segw, nseg=eng.nseg,
+              max_dist=eng.max_dist if max_dist is None else max_dist,
               seq_length=eng.index.seq_length)
     got = mxu_finder(*args, **kw)
     want = mxu_finder_plain(*args, **kw)
@@ -849,16 +904,67 @@ def mxu_inputs(eng, page):
     return eng.query_tensor(page), torch.as_tensor(qsp, device=eng.device)
 
 
+def ragged_mxu_inputs(eng, queries):
+    """The engine's slot plan cut to a slot count that still holds every
+    bucket's queries and is not a multiple of 8 (the plan's own qb is a
+    multiple of 64)."""
+    q, qsp = mxu_inputs(eng, queries)
+    need = int((qsp < q.numel()).sum(-1).max())
+    qb = need + 1 if need % 8 == 0 else need
+    return q, qsp[:, :, :qb].contiguous()
+
+
+def mxu_at(index, dev, width=8, seq_length=20):
+    """The MXU engine over the index's sites, cut to ``seq_length``-mers
+    and sliced at ``width``: width 4 runs the kernel's K = 96 instance."""
+    from crackling_tpu_torch.index.build import IsslIndex
+    from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
+
+    mask = np.uint64((1 << (2 * seq_length)) - 1)
+    other = IsslIndex(seq_length=seq_length, slice_width=width,
+                      seq_count=index.seq_count,
+                      site_sigs=index.site_sigs & mask,
+                      occurrences=index.occurrences)
+    return MxuIsslScorer(other, max_dist=4, chunk=1024, device=dev)
+
+
 def phase_mxu_kernel_vs_plain(dev, bench_eng, page):
+    """The neighbour finder kernel against its plain version: the small
+    index at max-distance 4, 0, 1 and 2 and with a ragged qb, at slice
+    width 4 (the K = 96 instance) and at seq_length 16 (queries left at
+    20 positions: the kernel cuts them), the skewed index and 16 buckets of
+    the page; returns the largest difference (0)."""
     from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 
     errs = []
     index, queries = small_world()
     eng = MxuIsslScorer(index, max_dist=4, chunk=1024, device=dev)
-    e, hits = compare_mxu(eng, *mxu_inputs(eng, queries))
+    inputs = mxu_inputs(eng, queries)
+    for max_dist in (4, 0, 1, 2):
+        e, hits = compare_mxu(eng, *inputs, max_dist=max_dist)
+        errs.append(e)
+        emit({"phase": "mxu_kernel_vs_plain", "input": "small",
+              "max_dist": max_dist, "neighbours": hits, "max_abs_err": e})
+    q, qsp = ragged_mxu_inputs(eng, queries)
+    e, hits = compare_mxu(eng, q, qsp)
     errs.append(e)
-    emit({"phase": "mxu_kernel_vs_plain", "input": "small",
-          "neighbours": hits, "max_abs_err": e})
+    emit({"phase": "mxu_kernel_vs_plain", "input": "small, ragged qb",
+          "qb": qsp.shape[2], "neighbours": hits, "max_abs_err": e})
+    for width, seq_length in ((4, 20), (8, 16)):
+        other = mxu_at(index, dev, width, seq_length)
+        for max_dist in (4, 2):
+            e, hits = compare_mxu(other, *mxu_inputs(other, queries),
+                                  max_dist=max_dist)
+            if hits == 0:
+                fail(f"neighbour finder at width {width}, seq_length "
+                     f"{seq_length}: no neighbour, so the input tests "
+                     "nothing")
+            errs.append(e)
+            emit({"phase": "mxu_kernel_vs_plain",
+                  "input": f"small, slice width {width}, seq_length "
+                           f"{seq_length}", "slices": other.S,
+                  "max_dist": max_dist, "neighbours": hits,
+                  "max_abs_err": e})
 
     index, queries = skewed_world()
     eng = MxuIsslScorer(index, max_dist=4, chunk=1024, device=dev)
@@ -884,22 +990,40 @@ def phase_mxu_kernel_vs_plain(dev, bench_eng, page):
     return max(errs)
 
 
-def mxu_bound_ms(eng, q, qsp):
-    """Least time for the neighbour finder's work on this page: the larger
-    of its operations over the ALU peak and its bytes (bucket entries,
-    plan, queries and offsets read once, the two planes written once) over
-    HBM bandwidth."""
+def mxu_bound_ms(eng, q, qsp, neighbours):
+    """Least time for the neighbour finder's work on this page: the largest
+    of its tensor operations (2 x K per live (slot, entry) pair, K = 64 at
+    slice width 8, else 96) over the int8 peak, its ALU operations (the OR
+    fold of every sum, the one-hot rows of every entry for every 64-slot
+    group with a live slot, ~16 per neighbour for its re-test and cell)
+    over the ALU peak, and its bytes (the entries of buckets with a live
+    slot, the plan, the queries and the offsets read once, the two planes
+    written once) over HBM bandwidth. Returns (ms, bound by, live pairs,
+    terms in ms); the terms keep the scalar design's 13-op term as
+    "alu_13op"."""
+    import torch.nn.functional as F
+
     n = q.numel()
-    qcount = ((qsp >= 0) & (qsp < n)).sum(-1).long()
-    blen = eng.bucket_lens.long()
-    pairs = int((blen * qcount).sum())
     S, B, qb = qsp.shape
-    nbytes = (int(blen.sum()) * 8 + qsp.numel() * 4 + n * 8 + S * B * 12
-              + S * B * eng.nseg * qb * 12)
-    t_ops = pairs * MXU_OPS_PER_PAIR / H100_ALU_OPS_PER_S * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes"), pairs
+    live = (qsp >= 0) & (qsp < n)
+    qcount = live.sum(-1).long()
+    blen = eng.bucket_lens.long().clamp(max=eng.nseg * eng.segw)
+    pairs = int((blen * qcount).sum())
+    groups = F.pad(live, (0, -qb % PACKED_SLOT_GROUP)).reshape(
+        S, B, -1, PACKED_SLOT_GROUP).any(-1).sum(-1).long()
+    k = PACKED_K if B == 256 else 96
+    nbytes = (int((blen * (qcount > 0)).sum()) * 8 + qsp.numel() * 4
+              + n * 8 + S * B * 12 + S * B * eng.nseg * qb * 12)
+    terms = {"tensor": pairs * 2 * k / H100_INT8_OPS_PER_S,
+             "operations": (pairs * PACKED_OR_OPS_PER_PAIR
+                            + int((blen * groups).sum())
+                            * FULLSCAN_BUILD_OPS_PER_ENTRY[k]
+                            + neighbours * MXU_CANDIDATE_OPS)
+             / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    terms["alu_13op"] = pairs * MXU_OPS_PER_PAIR / H100_ALU_OPS_PER_S
+    return terms[by] * 1e3, by, pairs, {k: v * 1e3 for k, v in terms.items()}
 
 
 def phase_mxu_page(dev, eng, page, card):
@@ -929,9 +1053,16 @@ def phase_mxu_page(dev, eng, page, card):
                    + int((flagged & eng._self_lookup(page)[0]).sum()) * eng.S)
     q, qsp = mxu_inputs(eng, page)
     planes = eng.finder(q, qsp)
+    neighbours = int(planes.cnt.sum())
     finder_ms = timed_ms(lambda: eng.finder(q, qsp), 3, dev)
     decode_ms = timed_ms(lambda: eng.decode(q, qsp, planes), 3, dev)
     del planes
+    # the hybrid's re-score size: a page of 2 queries (qb 64)
+    q2, qsp2 = mxu_inputs(eng, page[:2])
+    small = eng.finder(q2, qsp2)
+    small_ms = timed_ms(lambda: eng.finder(q2, qsp2), 10, dev)
+    small_bound = mxu_bound_ms(eng, q2, qsp2, int(small.cnt.sum()))
+    del small
     sync(dev)
     t = time.perf_counter()
     mxu_finder_plain(eng.entries, eng.bucket_offsets, eng.bucket_lens, q,
@@ -939,7 +1070,7 @@ def phase_mxu_page(dev, eng, page, card):
                      max_dist=eng.max_dist, seq_length=eng.index.seq_length)
     sync(dev)
     plain_ms = (time.perf_counter() - t) * 1e3
-    bound_ms, bound_by, pairs = mxu_bound_ms(eng, q, qsp)
+    bound_ms, bound_by, pairs, terms = mxu_bound_ms(eng, q, qsp, neighbours)
 
     rng = np.random.default_rng(SEED + 2)
     sample = page[rng.choice(page.shape[0], size=min(SAMPLE, page.shape[0]),
@@ -962,11 +1093,16 @@ def phase_mxu_page(dev, eng, page, card):
           "replay_ms": (page_s - device_s) * 1e3 - lookup_ms,
           "finder_ms": finder_ms, "decode_ms": decode_ms,
           "finder_plain_ms": plain_ms, "finder_bound_ms": bound_ms,
-          "finder_bound_by": bound_by,
+          "finder_bound_by": bound_by, "finder_bound_terms_ms": terms,
+          "neighbours": neighbours, "finder_2q_ms": small_ms,
+          "finder_2q_qb": int(qsp2.shape[2]),
+          "finder_2q_bound_ms": small_bound[0],
+          "finder_2q_bound_by": small_bound[1],
+          "finder_2q_bound_terms_ms": small_bound[3],
           "exact_guides_per_s": page.shape[0] / page_s,
           "sample_equal": len(sample)})
     return dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by="bytes" if bound_by == "bytes" else "operations")
 
 
 def phase_mxu_small(dev):

@@ -14,7 +14,8 @@
 //   queries, qoff (S, B+1) and qsorted (S, n).
 //
 // The hit test is a distance screen on the tensor cores, as in
-// csrc/compact_finder.cu (the helpers are csrc/mma_screen.cuh): every
+// csrc/compact_finder.cu (the helpers and the bucket loop, stream_bucket,
+// are csrc/mma_screen.cuh, shared with csrc/mxu_finder.cu): every
 // (entry, query) pair's distance is an int8 product (mma.sync m16n8k32) of
 // the entry's one-hot row, built in registers from its packed word, by the
 // query's weight column (1 at the lanes of the bases the query does not
@@ -78,20 +79,12 @@
 
 namespace {
 
-using mma_screen::a_fragments;
 using mma_screen::exact_hit;
 using mma_screen::kFull;
-using mma_screen::kOnes;
-using mma_screen::mma_acc;
-using mma_screen::mma_first;
-using mma_screen::onehot4;
-using mma_screen::or_tree;
-using mma_screen::outside_slice;
+using mma_screen::stream_bucket_nt;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = mma_screen::kStreamWarps * 32;
 constexpr int kSlots = 64;            // queries per block (one group)
-constexpr int kBatch = 64;            // entries per warp step: 4 m-tiles
 constexpr int kMaxZ = 64;             // the bucket scan's grid depth
 constexpr int kPenalties = 20 * 16;   // CFD position penalties
 
@@ -173,6 +166,14 @@ struct Scan {
   const float* mit_tab;
   const float* pen;                   // shared
   float pam;
+
+  // stream_bucket's view: entries as stored; candidates to add_candidates
+  __device__ __forceinline__ unsigned long long entry(
+      unsigned long long e) const {
+    return e;
+  }
+  __device__ __forceinline__ void candidates(uint32_t cand, int r0,
+                                             int t) const;
 };
 
 // A warp's candidates of one m-tile (bit 4i + e of ``cand``: element e of
@@ -206,116 +207,9 @@ __device__ __forceinline__ void add_candidates(const Scan& k, uint32_t cand,
   }
 }
 
-// The bucket against NT n-tiles of live columns (8 each), KS k32 steps
-// (2: K = 64, the positions outside slice s; 3: K = 96, all 20).
-template <int KS, int NT>
-__device__ __forceinline__ void stream_bucket(const Scan& k) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;          // rows g, g + 8; column g
-  const int t = lane & 3;
-
-  // B fragments: column g of n-tile i is live column 8i + g; per k-step
-  // ks the bases 2ks (b0) and 2ks + 1 (b1); with KS = 3, bf[i][4] the
-  // bases of position 16 + t (byte m: base m) and bf[i][5] the zero half.
-  // Every row has one base at position 0 (byte 0 of thread 0's
-  // registers), so max_dist + 1 taken from position 0's four weights
-  // starts every sum at -(max_dist + 1).
-  const uint32_t bias = (uint32_t)(k.max_dist + 1);
-  uint32_t bf[NT][2 * KS];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int col = 8 * i + g;
-    const bool live = col < k.nlive;
-    const unsigned long long q = live ? k.qcol[col] : 0ull;
-    uint32_t r[4];
-    onehot4(KS == 2 ? outside_slice(q, k.low) : (uint32_t)q, t, r);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const uint32_t w = live ? r[b] ^ kOnes : 2u * kOnes;
-      bf[i][b] = t == 0 ? (w & ~0xFFu) | ((w - bias) & 0xFFu) : w;
-    }
-    if constexpr (KS == 3) {
-      const uint32_t code = (uint32_t)(q >> (32 + 2 * t)) & 3u;
-      bf[i][4] = live ? (1u << (8 * code)) ^ kOnes : 2u * kOnes;
-      bf[i][5] = 0u;
-    }
-  }
-  const int nb = (k.len + kBatch - 1) / kBatch;
-
-  // lane l holds entries l and l + 32 of batch bt; past the bucket, 0
-  unsigned long long nxt[2];
-  auto load = [&](int bt) {
-    const int r = bt * kBatch + lane;
-    nxt[0] = r < k.len ? __ldg(k.bucket + r) : 0ull;
-    nxt[1] = r + 32 < k.len ? __ldg(k.bucket + r + 32) : 0ull;
-  };
-  // the A fragments of the m-tile whose rows g and g + 8 lie at lanes src
-  // and src + 8 of (w, hi): two k-steps from the words w, and with KS = 3
-  // a third from the high bytes (its upper half a3[2], a3[3] stays 0)
-  uint32_t a[2][4];
-  uint32_t a3[4] = {0u, 0u, 0u, 0u};
-  auto fragments = [&](uint32_t w, uint32_t hi, int src) {
-    a_fragments(w, src, t, a);
-    if constexpr (KS == 3) {
-      a3[0] = 1u << (8 * ((__shfl_sync(kFull, hi, src) >> (2 * t)) & 3u));
-      a3[1] = 1u << (8 * ((__shfl_sync(kFull, hi, src + 8) >> (2 * t))
-                          & 3u));
-    }
-  };
-  int bt = warp;
-  if (bt < nb) load(bt);
-  for (; bt < nb; bt += kWarps) {
-    const uint32_t w0 = KS == 2 ? outside_slice(nxt[0], k.low)
-                                : (uint32_t)nxt[0];
-    const uint32_t w1 = KS == 2 ? outside_slice(nxt[1], k.low)
-                                : (uint32_t)nxt[1];
-    const uint32_t h0 = (uint32_t)(nxt[0] >> 32);
-    const uint32_t h1 = (uint32_t)(nxt[1] >> 32);
-    if (bt + kWarps < nb) load(bt + kWarps);
-    // m-tile m: entries 16m..16m+15 of the batch; its row g is at lane
-    // 16 (m & 1) + g of w0 (m < 2) or w1. The next m-tile's A fragments
-    // are built while this one's products are in flight.
-    fragments(w0, h0, g);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      int d[NT][4];
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        mma_first(d[i], a[0], bf[i][0], bf[i][1]);
-        mma_acc(d[i], a[1], bf[i][2], bf[i][3]);
-        if constexpr (KS == 3) mma_acc(d[i], a3, bf[i][4], bf[i][5]);
-      }
-      if (m < 3)
-        fragments(m < 1 ? w0 : w1, m < 1 ? h0 : h1, 16 * ((m + 1) & 1) + g);
-      if (__any_sync(kFull, or_tree<NT>(d) < 0)) {
-        uint32_t cand = 0;
-#pragma unroll
-        for (int i = 0; i < NT; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            cand |= ((uint32_t)d[i][e] >> 31) << (4 * i + e);
-        add_candidates(k, cand, bt * kBatch + 16 * m + g, t);
-        __syncwarp();     // reconverge before the next mma.sync
-      }
-    }
-  }
-}
-
-template <int KS>
-__device__ __forceinline__ void stream_bucket_nt(const Scan& k, int nt) {
-  switch (nt) {
-    case 1: stream_bucket<KS, 1>(k); break;
-    case 2: stream_bucket<KS, 2>(k); break;
-    case 3: stream_bucket<KS, 3>(k); break;
-    case 4: stream_bucket<KS, 4>(k); break;
-    case 5: stream_bucket<KS, 5>(k); break;
-    case 6: stream_bucket<KS, 6>(k); break;
-    case 7: stream_bucket<KS, 7>(k); break;
-    case 8: stream_bucket<KS, 8>(k); break;
-    default: break;
-  }
+__device__ __forceinline__ void Scan::candidates(uint32_t cand, int r0,
+                                                 int t) const {
+  add_candidates(*this, cand, r0, t);
 }
 
 // The block's bucket of slice s and what every block reads of it.

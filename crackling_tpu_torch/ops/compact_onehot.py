@@ -12,22 +12,28 @@ nibbles are the earlier slices that match (first-clean-slice dedup).
 
 The planes keep **80 lanes** per entry (4 bases x 20 positions), not the
 JAX package's 128: 80 B per entry is 37.5% fewer plane bytes, and the
-extra JAX lanes (80..127) are always 0. The kernel pads them to K = 96
-(three k32 steps of int8 ``mma``) in shared memory.
+extra JAX lanes (80..127) are always 0.
 
 Two implementations of the same function:
 
 * :func:`compact_finder_onehot` — the wrapper. On a CUDA tensor it
   launches the hand-written Hopper kernel ``csrc/compact_onehot.cu``
-  (nvcc at first use, ctypes), which takes every pair's distance from an
-  int8 tensor-core product with weight 1 at the mismatched lanes, and the
-  masks of the rare tiles that hold a candidate from three int8 products
-  of 7-bit column groups; on a CPU tensor it runs the plain version. No
-  fallback from one to the other.
+  (nvcc at first use, ctypes); on a CPU tensor it runs the plain version.
+  No fallback from one to the other.
 * :func:`compact_finder_onehot_plain` — plain PyTorch: per (slice,
   bucket) with live slots, one f32 ``torch.matmul`` of the bucket's plane
   rows by the slots' weight columns, then the hit predicate on that mask
   and the plain compact finder's scatter.
+
+The kernel screens every pair by an int8 tensor-core product with K = 64:
+a row's 16-byte piece ``s`` is slice ``s``'s four positions, which every
+entry and query of a bucket of slice ``s`` share, so it multiplies the
+other four pieces (:func:`screen_rows`) by weight columns of 1 at the
+lanes of the bases the query does not have (:func:`screen_columns`,
+lowered by ``max_dist + 1`` at the first of those positions). A negative
+sum is a candidate, re-tested from its whole row (:func:`row_masks`:
+distance and first-clean-slice dedup). :func:`emulate_compact_onehot`
+runs that flow in plain PyTorch, for the tests.
 
 Replaces crackling_tpu/ops/issl_compact.py::_finder_kernel_onehot.
 """
@@ -40,10 +46,13 @@ import torch
 
 from .bits import earlier_slice_clean_mask, popcount
 from .compact_finder import (PLAIN_PAIR_BLOCK, ChunkMoments, FinderOut,
-                             alloc_out, check_inputs, superchunk_cells)
+                             alloc_out, check_inputs, mma_candidates,
+                             signed_columns, superchunk_cells)
 from .kernel_build import KernelLibrary
 
 LANES = 80                  # one-hot lanes per entry: 4 bases x 20 positions
+SCREEN_K = 64               # the kernel's product lanes: 4 of 5 pieces
+KERNEL_TILE_ROWS = 256      # the kernel's entry tile (kTileRows)
 PLANE_BUILD_ROWS = 1 << 20  # entries per step of the plane build
 
 
@@ -96,6 +105,18 @@ def _bind(lib):
 
 
 KERNEL = KernelLibrary("compact_onehot.cu", _bind)
+
+
+def blocks_per_sm(qb: int, device: torch.device) -> int:
+    """Blocks of the kernel one SM of ``device`` holds at a time for a
+    plan of ``qb`` slots (CUDA's occupancy calculator)."""
+    query = KERNEL.get().crackling_compact_onehot_blocks_per_sm
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int, ctypes.c_int]
+    n = query(qb, device.index or 0)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def compact_finder_onehot(planes: torch.Tensor, boff: torch.Tensor,
@@ -190,3 +211,86 @@ def compact_finder_onehot_plain(planes: torch.Tensor, boff: torch.Tensor,
 
 
 compact_finder_onehot_plain.calls = 0
+
+
+# -- the kernel's operands and flow, in plain PyTorch ---------------------
+
+
+def screen_pieces(s: int) -> list[int]:
+    """The 16-byte pieces (four positions each) of a row the kernel
+    multiplies in a bucket of slice ``s``: every piece but ``s``, in
+    order."""
+    return [p for p in range(LANES // 16) if p != s]
+
+
+def screen_rows(rows: torch.Tensor, s: int) -> torch.Tensor:
+    """(n, LANES) int8 plane rows -> (n, SCREEN_K) int8: the A operand the
+    kernel multiplies (pieces :func:`screen_pieces`)."""
+    return rows.view(-1, LANES // 16, 16)[:, screen_pieces(s)] \
+        .reshape(-1, SCREEN_K)
+
+
+def screen_columns(q: torch.Tensor, s: int, live: torch.Tensor,
+                   max_dist: int | None = None) -> torch.Tensor:
+    """(m,) int64 query signatures of slots of slice ``s`` and their
+    liveness -> (SCREEN_K, m) int8 weight columns for :func:`screen_rows`:
+    lane ``16 i + 4 j + b`` is position ``4 p + j`` (``p`` the i-th piece
+    of :func:`screen_pieces`), base ``b``; 1 where a live slot's query does
+    not have base ``b`` there, 2 at every lane of a padding slot. With
+    ``max_dist``, the first of those positions' four weights are lowered
+    by ``max_dist + 1``, so a row with one base there sums to its distance
+    outside slice ``s`` less ``max_dist + 1``."""
+    k = torch.arange(SCREEN_K)
+    pos = 4 * torch.tensor(screen_pieces(s))[k // 16] + (k % 16) // 4
+    code = (q[:, None] >> (2 * pos)) & 3                    # (m, K)
+    w = (code != k % 4).long()
+    if max_dist is not None:
+        w[:, :4] -= max_dist + 1
+    w = torch.where(live[:, None], w, 2)
+    return signed_columns(w & 0xFF)
+
+
+def row_masks(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(n, LANES) int8 plane rows and (n,) int64 query signatures -> (n,)
+    int64 20-bit mismatch masks, the kernel's re-test of a candidate: bit
+    ``p`` set iff the row holds a base at ``p`` that the query does not
+    have (the product of the row by the query's 2^p weight column)."""
+    p = torch.arange(LANES // 4)
+    code = (q[:, None] >> (2 * p)) & 3                      # (n, 20)
+    miss = code[:, :, None] != torch.arange(4)              # (n, 20, 4)
+    bit = (rows.view(-1, LANES // 4, 4).bool() & miss).any(-1)
+    return (bit.long() << p).sum(-1)
+
+
+def emulate_compact_onehot(planes: torch.Tensor, boff: torch.Tensor,
+                           blen: torch.Tensor, q_sig: torch.Tensor,
+                           qsp: torch.Tensor, *, chunk: int, nchmax: int,
+                           superchunk: int, max_dist: int) -> FinderOut:
+    """The kernel's flow in plain PyTorch (same arguments and result): per
+    (slice, bucket) with a live slot, the bucket's plane rows in whole
+    tiles of KERNEL_TILE_ROWS (here 0 past its end; the kernel's rows there
+    hold whatever the stage held, and its rank test drops them) as the
+    kernel's K = 64 rows, times every slot's biased column; a negative
+    product of a live column and a row within the bucket is a candidate,
+    re-tested from its whole row (:func:`row_masks`: distance within
+    ``max_dist``, no earlier slice clean) and folded into the chunk
+    quads."""
+    S, B, qb = qsp.shape
+    n = q_sig.numel()
+    acc = ChunkMoments(qsp.shape, chunk, nchmax, planes.device)
+    ids = qsp.long()
+    live = (ids >= 0) & (ids < n)
+    for s, b in torch.nonzero(live.any(-1) & (blen > 0)).tolist():
+        length, o = int(blen[s, b]), int(boff[s, b])
+        rows = torch.zeros((-(-length // KERNEL_TILE_ROWS)
+                            * KERNEL_TILE_ROWS, LANES), dtype=torch.int8)
+        rows[:length] = planes[s, o:o + length]
+        q = q_sig[ids[s, b].clamp(0, n - 1)]
+        cand = mma_candidates(
+            screen_rows(rows, s), screen_columns(q, s, live[s, b], max_dist),
+            torch.arange(rows.shape[0]), length) & live[s, b][None, :]
+        r, j = torch.nonzero(cand, as_tuple=True)
+        m = row_masks(rows[r], q[j])
+        hit = (popcount(m) <= max_dist) & ~earlier_slice_clean_mask(m, s)
+        acc.add((s * B + b) * qb + j[hit], r[hit])
+    return acc.finder_out(superchunk)

@@ -25,6 +25,14 @@ Two implementations of the same function:
   entry) pairs, in bounded blocks; the CPU engine and the reference the
   kernel is held to on the card.
 
+The kernel screens every pair by the full-scan kernels' int8 tensor-core
+product (``fullscan.scan_rows`` by ``fullscan.scan_columns``, of the
+signatures cut to their 2L bits): K = 64 at slice width 8 (the bucket
+count 256), K = 96 at the others. A negative sum (distance within
+``max_dist``) is a candidate, re-tested from its packed words and kept
+iff its distance lies in ``1..max_dist``. :func:`emulate_mxu_finder` runs
+that flow in plain PyTorch, for the tests.
+
 Replaces crackling_tpu/ops/issl_mxu.py::_kernel.
 """
 
@@ -37,6 +45,7 @@ import torch
 
 from .bits import collapse_pairs, popcount
 from .compact_finder import slot_entry_pairs
+from .fullscan import scan_columns, scan_k, scan_rows
 from .kernel_build import KernelLibrary
 
 
@@ -172,3 +181,62 @@ def mxu_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
 
 
 mxu_finder_plain.calls = 0
+
+
+# -- the kernel's flow, in plain PyTorch ----------------------------------
+
+
+def screen_width(bucket_count: int) -> int:
+    """The slice width the kernel's screen assumes from the bucket count
+    (``2^width``): width 8 takes K = 64, any other K = 96."""
+    return bucket_count.bit_length() - 1
+
+
+def emulate_mxu_finder(entries: torch.Tensor, boff: torch.Tensor,
+                       blen: torch.Tensor, q_sig: torch.Tensor,
+                       qsp: torch.Tensor, *, segw: int, nseg: int,
+                       max_dist: int, seq_length: int) -> NeighbourPlanes:
+    """The kernel's flow in plain PyTorch (same arguments and result): per
+    (slice, bucket) with a live slot, the bucket's first ``nseg * segw``
+    entries (in whole 64-entry batches, 0 past its end) and the slots'
+    queries, both cut to their 2L bits, as the kernel's rows and biased
+    columns (``scan_rows``, ``scan_columns``); a negative product of a
+    live column and a row within the bucket is a candidate (the epilogue
+    screen of ``compact_finder.mma_candidates``), kept iff its distance
+    from the packed words lies in ``1..max_dist``, and added to its
+    segment cell. The buckets of a slice go through one batched product,
+    padded to the longest."""
+    S, B, qb = qsp.shape
+    n = q_sig.numel()
+    mask = signature_mask(seq_length)
+    width = screen_width(B)
+    K = scan_k(width)
+    cnt = torch.zeros(S * B * nseg * qb, dtype=torch.int64)
+    rsum = torch.zeros(S * B * nseg * qb, dtype=torch.int64)
+    ids = qsp.long()
+    live = (ids >= 0) & (ids < n)
+    flat = entries.reshape(-1)
+    for s in range(S):
+        bs = torch.nonzero(live[s].any(-1) & (blen[s] > 0)).flatten()
+        if bs.numel() == 0:
+            continue
+        lens = blen[s, bs].long().clamp(max=nseg * segw)
+        rank = torch.arange(-(-int(lens.max()) // 64) * 64)
+        inb = rank < lens[:, None]                         # (nb, rows)
+        at = s * entries.shape[1] + boff[s, bs][:, None] + rank
+        e = torch.where(inb, flat[at.clamp(max=flat.numel() - 1)], 0) & mask
+        q = q_sig[ids[s, bs].clamp(0, n - 1)] & mask       # (nb, qb)
+        rows = scan_rows(e.flatten(), s, width).view(bs.numel(), -1, K)
+        cols = scan_columns(q.flatten(), s, width, live[s, bs].flatten(),
+                            max_dist).view(K, bs.numel(), qb)
+        d = rows.int() @ cols.permute(1, 0, 2).int()       # (nb, rows, qb)
+        cand = (d < 0) & inb[:, :, None] & live[s, bs][:, None, :]
+        i, r, j = torch.nonzero(cand, as_tuple=True)
+        dist = popcount(collapse_pairs(e[i, r] ^ q[i, j]))
+        keep = (dist >= 1) & (dist <= max_dist)
+        i, r, j = i[keep], r[keep], j[keep]
+        cell = ((s * B + bs[i]) * nseg + r // segw) * qb + j
+        cnt.index_add_(0, cell, torch.ones_like(r))
+        rsum.index_add_(0, cell, r)
+    return NeighbourPlanes(cnt.view(S, B, nseg, qb).int(),
+                           rsum.view(S, B, nseg, qb))

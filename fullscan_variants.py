@@ -3,13 +3,15 @@
 
     python3 fullscan_variants.py [--other TREE] [name ...]
 
-Each variant is ``crackling_tpu_torch/csrc/fullscan.cu`` with a few text
-substitutions (``VARIANTS``); ``--other TREE`` adds the ``fullscan.cu`` of
-another tree (an unpacked ``git archive`` of another commit, e.g. the
-parent, in a directory that ``.gitignore`` lists) as the build ``other``.
-All are built with nvcc for sm_90a into
-``crackling_tpu_torch/_build/variants_fullscan/`` (at once) and loaded with
-ctypes beside each other: their C entry points share one signature. On the
+Each variant is a copy of ``crackling_tpu_torch/csrc/`` with a few text
+substitutions in ``fullscan.cu`` or in ``mma_screen.cuh``, which holds
+the kernels' bucket loop (``VARIANTS``); ``--other TREE`` adds the
+``fullscan.cu`` of another tree (an unpacked ``git archive`` of another
+commit, e.g. the parent, in a directory that ``.gitignore`` lists) as the
+build ``other``. All are built with nvcc for sm_90a into
+``crackling_tpu_torch/_build/variants/`` (``finder_variants.py``'s
+builder, at once) and loaded with ctypes beside each other: their C entry
+points share one signature. On the
 27 Mbp operating point of ``chip_smoke.py`` (its cached dataset) every
 build runs ``dense_scan`` on the 65,536-query page and ``bucket_scan`` on
 the first 8,192-query page, in turns (the list, then the list reversed),
@@ -30,73 +32,50 @@ scan's K = 64 instance (the kernel takes three).
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke as cs
+from finder_variants import OUT, build_variant, compile_lib
 
-ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "crackling_tpu_torch" / "csrc"
-OUT = ROOT / "crackling_tpu_torch" / "_build" / "variants_fullscan"
-
+_FS, _MS = "fullscan.cu", "mma_screen.cuh"
 _VOTE = "if (__any_sync(kFull, or_tree<NT>(d) < 0)) {"
 _ACC = "        mma_acc(d[i], a[1], bf[i][2], bf[i][3]);\n"
 _NXT = """  unsigned long long nxt[2];
   auto load = [&](int bt) {
-    const int r = bt * kBatch + lane;
-    nxt[0] = r < k.len ? __ldg(k.bucket + r) : 0ull;
-    nxt[1] = r + 32 < k.len ? __ldg(k.bucket + r + 32) : 0ull;
+    const int r = bt * kStreamBatch + lane;
+    nxt[0] = r < k.len ? k.entry(__ldg(k.bucket + r)) : 0ull;
+    nxt[1] = r + 32 < k.len ? k.entry(__ldg(k.bucket + r + 32)) : 0ull;
   };"""
 _FIRST = """  if (bt < nb) load(bt);
 """
-_NEXT = """    if (bt + kWarps < nb) load(bt + kWarps);"""
+_NEXT = """    if (bt + kStreamWarps < nb) load(bt + kStreamWarps);"""
+# each variant a list of (file, old, new)
 VARIANTS = {
     "kernel": [],
     # the vote never fires: the products, the OR fold and the vote without
     # the exact re-test and the scoring of the candidates (sums differ)
-    "no_candidates": [(_VOTE, _VOTE.replace("< 0", "< -100000"))],
+    "no_candidates": [(_MS, _VOTE, _VOTE.replace("< 0", "< -100000"))],
     # a third mma.sync per (m-tile, n-tile) at K = 64, on a zero operand
     # pair: the marginal cost of an mma.sync
-    "three_mma": [(_ACC, _ACC + "        mma_acc(d[i], a[1], 0u, 0u);\n")],
+    "three_mma": [(_MS, _ACC,
+                   _ACC + "        mma_acc(d[i], a[1], 0u, 0u);\n")],
     # each lane loads its entries two batches ahead in place of one
     "prefetch2": [
-        (_NXT, _NXT.replace("nxt[2];", "nxt[2], far[2];")
+        (_MS, _NXT, _NXT.replace("nxt[2];", "nxt[2], far[2];")
          .replace("(int bt)", "(unsigned long long (&dst)[2], int bt)")
          .replace("    nxt[", "    dst[")),
-        (_FIRST, "  if (bt < nb) load(nxt, bt);\n"
-                 "  if (bt + kWarps < nb) load(far, bt + kWarps);\n"),
-        (_NEXT, "    nxt[0] = far[0];\n    nxt[1] = far[1];\n"
-                "    if (bt + 2 * kWarps < nb) load(far, bt + 2 * kWarps);")],
+        (_MS, _FIRST, "  if (bt < nb) load(nxt, bt);\n"
+                      "  if (bt + kStreamWarps < nb) "
+                      "load(far, bt + kStreamWarps);\n"),
+        (_MS, _NEXT, "    nxt[0] = far[0];\n    nxt[1] = far[1];\n"
+                     "    if (bt + 2 * kStreamWarps < nb) "
+                     "load(far, bt + 2 * kStreamWarps);")],
     # the bucket scan's K = 64 instance at two blocks per SM
-    "blocks2": [("__launch_bounds__(kThreads, KS == 2 ? 3 : 2)",
+    "blocks2": [(_FS, "__launch_bounds__(kThreads, KS == 2 ? 3 : 2)",
                  "__launch_bounds__(kThreads, 2)")],
 }
-
-
-def build(name: str, source: Path, include: Path):
-    lib = OUT / f"lib{name}.so"
-    res = subprocess.run(
-        ["/usr/local/cuda/bin/nvcc", "-gencode",
-         "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas",
-         "-v", "-shared", "-Xcompiler", "-fPIC", f"-I{include}", "-o",
-         str(lib), str(source)],
-        capture_output=True, text=True)
-    if res.returncode:
-        cs.fail(f"build {name} did not compile:\n{res.stderr}")
-    return name, lib, cs.ptxas_lines(res.stderr)
-
-
-def variant_source(name: str, subs) -> Path:
-    src = (CSRC / "fullscan.cu").read_text()
-    for old, new in subs:
-        if old not in src:
-            cs.fail(f"variant {name}: {old!r} is not in the source")
-        src = src.replace(old, new)
-    path = OUT / f"{name}.cu"
-    path.write_text(src)
-    return path
 
 
 def main(argv):
@@ -113,13 +92,18 @@ def main(argv):
     names = ["kernel"] + [n for n in names if n != "kernel"]
     OUT.mkdir(parents=True, exist_ok=True)
     # (source, include directory) of each build
-    sources = {n: (variant_source(n, VARIANTS[n]), CSRC) for n in names}
+    sources = {}
+    for n in names:
+        src = build_variant(f"fullscan_{n}", _FS, VARIANTS[n])
+        sources[n] = (src, src.parent)
     if other is not None:
         names.append("other")
         csrc = other / "crackling_tpu_torch" / "csrc"
-        sources["other"] = (csrc / "fullscan.cu", csrc)
+        sources["other"] = (csrc / _FS, csrc)
     with ThreadPoolExecutor(len(names)) as ex:
-        built = list(ex.map(lambda n: build(n, *sources[n]), names))
+        built = list(ex.map(
+            lambda n: (n,) + compile_lib(f"fullscan_{n}", *sources[n])[1:],
+            names))
     libs = {}
     for name, lib, ptxas in built:
         cs.emit({"variant": name, "source": str(sources[name][0]),

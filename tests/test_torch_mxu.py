@@ -18,7 +18,8 @@ from crackling_tpu.index import build_index as jax_build_index
 from crackling_tpu.ops.issl_mxu import MxuIsslScorer as JaxMxu
 from crackling_tpu.ops.oracle import score_exact
 from crackling_tpu_torch.ops.issl_mxu import SLOT_ALIGN, MxuIsslScorer
-from crackling_tpu_torch.ops.mxu_finder import mxu_finder
+from crackling_tpu_torch.ops.mxu_finder import (emulate_mxu_finder,
+                                                mxu_finder)
 from test_mxu import data  # noqa: F401  (shared fixture)
 from test_torch_compact import port_index
 
@@ -58,20 +59,52 @@ def _sub_l(index, queries, seq_length):
     return sub, queries & mask
 
 
-@pytest.mark.parametrize("seq_length", [20, 16])
-def test_plain_finder_equals_jax_kernel(data, seq_length):  # noqa: F811
-    index, queries = data
-    if seq_length != 20:
-        index, queries = _sub_l(index, queries, seq_length)
-    jax_eng = JaxMxu(index, max_dist=4, interpret=True, **KW)
-    page = queries[:300]
-    qsp, cnt, pos = _jax_planes(jax_eng, page)
+@pytest.fixture(scope="module")
+def jax_kernel_pages(data):  # noqa: F811
+    """The JAX kernel's planes for the first 300 queries at seq_length 20
+    and 16, each run once in interpret mode and shared by the tests that
+    hold the port's finders to them: (index, page, qsp, cnt, pos)."""
+    cache = {}
+
+    def get(seq_length):
+        if seq_length not in cache:
+            index, queries = data
+            if seq_length != 20:
+                index, queries = _sub_l(index, queries, seq_length)
+            jax_eng = JaxMxu(index, max_dist=4, interpret=True, **KW)
+            page = queries[:300]
+            cache[seq_length] = (index, page) + _jax_planes(jax_eng, page)
+        return cache[seq_length]
+
+    return get
+
+
+def _port_finder(finder, index, page, qsp, seq_length):
     eng = MxuIsslScorer(port_index(index), max_dist=4, device="cpu", **KW)
-    assert eng.nseg == cnt.shape[2]
-    planes = mxu_finder(
+    planes = finder(
         eng.entries, eng.bucket_offsets, eng.bucket_lens,
         eng.query_tensor(page), torch.as_tensor(qsp), segw=eng.segw,
         nseg=eng.nseg, max_dist=4, seq_length=seq_length)
+    return eng, planes
+
+
+@pytest.mark.parametrize("seq_length", [20, 16])
+def test_plain_finder_equals_jax_kernel(jax_kernel_pages, seq_length):
+    index, page, qsp, cnt, pos = jax_kernel_pages(seq_length)
+    eng, planes = _port_finder(mxu_finder, index, page, qsp, seq_length)
+    assert eng.nseg == cnt.shape[2]
+    np.testing.assert_array_equal(planes.cnt.numpy(), cnt.astype(np.int64))
+    np.testing.assert_array_equal(planes.rsum.numpy(), pos.astype(np.int64))
+    assert planes.cnt.sum() > 0
+
+
+@pytest.mark.parametrize("seq_length", [20, 16])
+def test_emulated_finder_equals_jax_kernel(jax_kernel_pages, seq_length):
+    """The kernel's flow (the int8 screen, ops/mxu_finder.py's
+    ``emulate_mxu_finder``) on the JAX kernel's page and plan."""
+    index, page, qsp, cnt, pos = jax_kernel_pages(seq_length)
+    _, planes = _port_finder(emulate_mxu_finder, index, page, qsp,
+                             seq_length)
     np.testing.assert_array_equal(planes.cnt.numpy(), cnt.astype(np.int64))
     np.testing.assert_array_equal(planes.rsum.numpy(), pos.astype(np.int64))
     assert planes.cnt.sum() > 0

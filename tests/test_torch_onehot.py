@@ -3,6 +3,12 @@
 The port's one-hot planes, its plain one-hot finder and its compact
 scorer with ``onehot=True`` run on the CPU; the JAX package's one-hot
 finder runs its Pallas kernel in interpret mode, as its own tests do.
+The kernel's arithmetic (``csrc/compact_onehot.cu``: the four 16-byte
+pieces of a row outside the bucket's slice times biased int8 weight
+columns, K = 64, and the exact re-test of each candidate from its row) is
+emulated with ``ops/compact_onehot.py``'s ``screen_rows``,
+``screen_columns``, ``row_masks`` and ``emulate_compact_onehot``, held to
+the packed kernel's operands, the distance and the plain finders.
 Inputs are ``tests/test_compact.py``'s datasets (numpy, from a seed).
 Tolerances: planes and finder cells exact (integers); compaction
 populations exact under the same caps; sums within rtol 1e-5 / atol 1e-5
@@ -17,11 +23,17 @@ import torch
 from crackling_tpu.ops.issl_compact import CompactIsslScorer as JaxCompact
 from crackling_tpu.ops.issl_mxu import _onehot_rows
 from crackling_tpu.ops.oracle import score_bruteforce
-from crackling_tpu_torch.ops.compact_finder import compact_finder_plain
-from crackling_tpu_torch.ops.compact_onehot import (LANES,
+from crackling_tpu_torch.ops.bits import (SIG40, collapse_pairs,
+                                          compress_even_bits, popcount)
+from crackling_tpu_torch.ops.compact_finder import (compact_finder_plain,
+                                                    mma_columns, mma_rows)
+from crackling_tpu_torch.ops.compact_onehot import (LANES, SCREEN_K,
                                                     compact_finder_onehot,
                                                     compact_finder_onehot_plain,
-                                                    onehot_planes)
+                                                    emulate_compact_onehot,
+                                                    onehot_planes, row_masks,
+                                                    screen_columns,
+                                                    screen_rows)
 from crackling_tpu_torch.ops.issl_compact import ALIGN, CompactIsslScorer
 from test_compact import data, deep_data  # noqa: F401
 from test_torch_compact import (JAX_CASES, _assert_sums, _numpy_finder,
@@ -97,6 +109,75 @@ def test_onehot_finder_refuses_bad_planes(datasets):
     wide = torch.zeros(entries.shape + (128,), dtype=torch.int8)
     with pytest.raises(ValueError, match="80 lanes"):
         compact_finder_onehot(wide, boff, blen, q_sig, qsp, **kw)
+
+
+# -- the kernel's arithmetic, emulated ---------------------------------------
+
+
+@pytest.mark.parametrize("seq_length,s", [(20, s) for s in range(5)]
+                         + [(16, s) for s in range(4)])
+def test_screen_operands_cut_from_planes(seq_length, s):
+    """The four pieces of a plane row outside slice ``s`` times the screen
+    columns give the packed kernel's product (the distance outside slice
+    ``s`` over the planes' positions); biased, that less ``max_dist + 1``
+    for a live slot; a padding slot's sum and an all-zero row's are never
+    negative; and the row masks are the plain finder's 20-bit masks."""
+    rng = np.random.default_rng(7 * s + seq_length)
+    sig_mask = (1 << (2 * seq_length)) - 1
+    b = int(rng.integers(0, 256))
+    e = torch.as_tensor(rng.integers(0, 1 << 40, 200).astype(np.int64))
+    q = torch.as_tensor(rng.integers(0, 1 << 40, 24).astype(np.int64))
+    e[:8] = q[:8] ^ (1 << (2 * torch.as_tensor(rng.integers(0, 20, 8))))
+    e, q = ((x & ~(0xFF << (8 * s))) | (b << (8 * s)) for x in (e, q))
+    e = e & sig_mask
+    rows = onehot_planes(e[None], seq_length)[0]
+    live = torch.ones(24, dtype=torch.bool)
+    live[[2, 17]] = False
+    a = screen_rows(rows, s)
+    assert a.dtype == torch.int8 and a.shape == (200, SCREEN_K)
+    prod = a.long() @ screen_columns(q, s, live).long()
+    packed = mma_rows(e, s).long() @ mma_columns(q & sig_mask, s,
+                                                 live).long()
+    assert torch.equal(prod[:, live], packed[:, live])
+    dist = popcount(collapse_pairs((e[:, None] ^ q[None, :]) & sig_mask))
+    assert torch.equal(prod[:, live], dist[:, live])
+    for max_dist in (0, 2, 4):
+        cols = screen_columns(q, s, live, max_dist)
+        biased = a.long() @ cols.long()
+        assert torch.equal(biased[:, live], dist[:, live] - max_dist - 1)
+        assert bool((biased[:, ~live] > 0).all())
+        zero = torch.zeros((1, SCREEN_K), dtype=torch.long)
+        assert bool(((zero @ cols.long()) == 0).all())
+    r = torch.arange(200).repeat_interleave(24)
+    j = torch.arange(24).repeat(200)
+    want = compress_even_bits(collapse_pairs((e[r] ^ q[j]) & SIG40
+                                             & sig_mask))
+    assert torch.equal(row_masks(rows[r], q[j]), want)
+
+
+@pytest.mark.parametrize("name,superchunk,qb", [("data", 0, 64),
+                                                ("data", 0, 21),
+                                                ("deep", 2, 21),
+                                                ("deep", 0, 64)])
+@pytest.mark.parametrize("max_dist", [0, 2, 4])
+def test_emulated_onehot_finder_matches_plain(datasets, name, superchunk,
+                                              qb, max_dist):
+    """The kernel's flow equals the plain one-hot finder and the plain
+    packed finder in every cell (max-distance 0, 2, 4; a ragged qb; the
+    superchunk on and off)."""
+    index, queries = datasets[name]
+    pidx = port_index(index)
+    (entries, boff, blen, q_sig, qsp), nchmax = _finder_inputs(
+        pidx, queries, 1024, qb)
+    planes = onehot_planes(entries, pidx.seq_length)
+    kw = dict(chunk=1024, nchmax=nchmax, superchunk=superchunk,
+              max_dist=max_dist)
+    got = emulate_compact_onehot(planes, boff, blen, q_sig, qsp, **kw)
+    plain = compact_finder_onehot_plain(planes, boff, blen, q_sig, qsp, **kw)
+    packed = compact_finder_plain(entries, boff, blen, q_sig, qsp, **kw)
+    for a, b, c in zip(got[:4], plain[:4], packed[:4]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(plain.cnt[:, :, -1].sum()) > 0
 
 
 # -- the scorer against the JAX engine's one-hot finder ---------------------
