@@ -37,6 +37,13 @@ Phases, each fatal on failure:
     finders' bounds with their terms, the one-hot kernel's blocks per
     SM, the page wall time and guides/s with each finder, the planes'
     bytes and build time;
+3d. the 65,536-query page with the sharded compact engine at 1, 2 and 4
+    site-range shards listed on the one card: the compact finder must
+    launch shards x pages times, with no plain version, and the sums must
+    lie within rtol 1e-9 of the one-shard page's; page wall (host clock)
+    and each shard's finder and decode (CUDA events) timed; at 4 shards a
+    2,048-query sample within rtol 1e-4 of the exact sums, hybrid ``and``
+    verdicts identical to native exact, and a profile of one warm page;
 4. hold the neighbour finder kernel (the MXU engine's, an int8
    tensor-core distance screen: K = 64 at slice width 8, 96 at the
    others) against its plain version, cell for cell (exact), on the small
@@ -76,22 +83,32 @@ Phases, each fatal on failure:
    pages, timed and checked the same way;
 9. the deep bucket: an index with one bucket of more than 2^22 entries,
    written to a ``.issl``, through ``Pipeline._get_issl_scorer`` with
-   ``engine = compact``: it must log the fallback and build the hybrid
-   over the dense engine, whose verdicts on 256 queries (half in the deep
-   bucket) must equal native exact;
+   ``engine = compact``, then ``engine = sharded``: each must log the
+   fallback and build the hybrid over the dense engine (the sharded dense
+   engine), whose verdicts on 256 queries (half in the deep bucket) must
+   equal native exact; the sharded run must launch ``dense_scan``, with
+   no plain version;
 10. the hybrid's verdicts for all five methods against ``score_exact`` on
     the small index, over each fast engine (compact and dense), with its
     own band and with an infinite one, which re-scores every query
     through the neighbour finder on the card;
 11. ``Crackling -c config.ini`` through its CLI entry point on the GPU
-    five times, every kernel's launch counter and plain-call counter
+    six times, every kernel's launch counter and plain-call counter
     reset just before each run and read just after: ``engine = auto``
     (the compact finder must have launched), ``auto`` with
     ``CRACKLING_TPU_COMPACT_ONEHOT=1`` (the one-hot finder, and not the
-    packed one), then ``exact`` (the neighbour finder), ``dense``
-    (``dense_scan``) and ``pallas`` (``bucket_scan``) on the same files,
-    with no plain version run in any; each run's ``passedOffTargetScore``
-    column must equal the ``auto`` run's row by row;
+    packed one), ``sharded`` in one process (the compact finder), then
+    ``exact`` (the neighbour finder), ``dense`` (``dense_scan``) and
+    ``pallas`` (``bucket_scan``) on the same files, with no plain version
+    run in any; each run's ``passedOffTargetScore`` column must equal the
+    ``auto`` run's row by row;
+11b. ``Crackling -c`` with ``engine = sharded`` in two processes on the
+    one card (``process-count = 2``, a free localhost port,
+    CRACKLING_PROCESS_ID 0 and 1, an output directory each): each prints
+    its kernel launch counts on a line of its own and must have launched
+    the compact finder with no plain version; both must exit 0, their
+    CSVs must be byte-equal and their ``passedOffTargetScore`` the
+    ``auto`` run's;
 12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
     2,048-query file of the 27 Mbp index: with CRACKLING_PLATFORM unset
     the work is below the JAX CLI's 5e8, so it scores in f64 on the card
@@ -1105,6 +1122,97 @@ def phase_mxu_page(dev, eng, page, card):
                 bound_by="bytes" if bound_by == "bytes" else "operations")
 
 
+def phase_sharded_page(dev, index, queries, card):
+    """The 65,536-query page with ``ShardedCompactIsslScorer`` at 1, 2 and
+    4 site-range shards, all listed on the one card (the port's form of the
+    JAX package's virtual-device layout). After a first call that tunes
+    each shard's caps, the counts are set to 0 and one call must launch
+    the compact finder shards x pages times and run no plain version; its
+    sums must lie within rtol 1e-9 of the one-shard page's (the same f32
+    terms summed in f64 in another order). The page wall (host clock) and
+    each shard's finder and decode (CUDA events) are timed; at 4 shards a
+    2,048-query sample must be within rtol 1e-4 of the exact sums and the
+    hybrid's ``and`` verdicts equal to native exact, and one warm page is
+    profiled. Returns the launch counts by shard count."""
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.parallel.sharded import (ShardedCompactIsslScorer,
+                                                      make_mesh)
+    from crackling_tpu_torch.pipeline.run import verdicts
+
+    kernels = kernel_counters()
+    ref, launches = None, {}
+    for k in (1, 2, 4):
+        t = time.perf_counter()
+        sc = ShardedCompactIsslScorer(index, make_mesh(k, 1, [dev] * k),
+                                      max_dist=4)
+        build_s = time.perf_counter() - t
+        sc.score_sums(queries)                  # tunes each shard's caps
+        reset_counters(kernels)
+        sync(dev)
+        t = time.perf_counter()
+        mit_sum, cfd_sum = sc.score_sums(queries)
+        sync(dev)
+        walls = [time.perf_counter() - t]
+        got, plain_calls = read_counters(kernels)
+        pages = k * -(-queries.shape[0] // sc.engines[0][0].query_page)
+        launches[k] = got["compact_finder"]
+        if torch_is_cuda(dev) and (launches[k] != pages
+                                   or any(plain_calls.values())):
+            fail(f"the {k}-shard page launched {got} with plain calls "
+                 f"{plain_calls}; expected {pages} compact finder launches")
+        walls += host_walls(lambda: sc.score_sums(queries), dev, reps=2)
+        finder_ms, decode_ms = [], []
+        for eng in sc.engines[0]:
+            q, qsp = finder_inputs(eng, queries)
+            fo = eng.finder(q, qsp)
+            finder_ms.append(timed_ms(lambda: eng.finder(q, qsp), 3, dev))
+            decode_ms.append(timed_ms(lambda: eng.decode(q, qsp, fo), 3,
+                                      dev))
+        if ref is None:
+            ref = (mit_sum, cfd_sum)
+        rel = max(float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+                  for g, w in zip((mit_sum, cfd_sum), ref))
+        if rel > 1e-9:
+            fail(f"the {k}-shard sums differ from the one-shard page's by "
+                 f"{rel:.3e} (relative)")
+        line = {"phase": "sharded_page", "card": card, "shards": k,
+                "queries": int(queries.shape[0]), "build_s": build_s,
+                "page_wall_s": walls,
+                "guides_per_s": queries.shape[0] / float(np.median(walls)),
+                "finder_ms_by_shard": finder_ms,
+                "finder_ms_total": float(np.sum(finder_ms)),
+                "decode_ms_by_shard": decode_ms,
+                "rescan_chunks_by_shard": [e.page_stats[-1][5]
+                                           for e in sc.engines[0]],
+                "shard_sites": [e.index.num_sites for e in sc.engines[0]],
+                "launches": got, "plain_calls": plain_calls,
+                "max_rel_diff_vs_one_shard": rel}
+        if k == 4:
+            rng = np.random.default_rng(SEED + 6)
+            pick = rng.choice(queries.shape[0],
+                              size=min(SAMPLE, queries.shape[0]),
+                              replace=False)
+            sample = queries[pick]
+            line["sample_max_rel_err"], line["sample_max_score_dev"] = \
+                sample_vs_exact(sc, "sharded compact", index, mit_sum,
+                                cfd_sum, pick, sample)
+            hyb = HybridIsslScorer(index, max_dist=4, method="and",
+                                   threshold=75.0, dense=sc)
+            em, ec = native.exact_score_native(index, sample, 4, 75.0, "and")
+            if not np.array_equal(verdicts(*hyb.score(sample), 75.0, "and"),
+                                  verdicts(em, ec, 75.0, "and")):
+                fail("hybrid verdicts over the 4-shard engine differ from "
+                     "the exact scorer's (and, 75)")
+            line["hybrid_sample_rescored"] = hyb.last_rescored
+            del hyb
+        emit(line)
+        if k == 4:
+            phase_profile(dev, lambda: sc.score_sums(queries), "compact.")
+        del sc
+    return launches
+
+
 def phase_mxu_small(dev):
     from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
     from crackling_tpu_torch.ops.oracle import score_exact
@@ -1570,9 +1678,10 @@ def deep_world(seed=31, n_deep=4_300_000):
     return index, queries
 
 
-def write_config(out, files, engine, sites=None):
+def write_config(out, files, engine, sites=None, tpu_extra=""):
     """A ``Crackling`` config on the bench files (``sites`` replaces the
-    off-target index) with ``[tpu] engine = <engine>``."""
+    off-target index) with ``[tpu] engine = <engine>`` and the ``[tpu]``
+    lines ``tpu_extra``."""
     cfg = out / "config.ini"
     cfg.write_text(f"""[general]
 name = smoke
@@ -1623,14 +1732,16 @@ high_energy_threshold = -18
 
 [tpu]
 engine = {engine}
-""")
+{tpu_extra}""")
     return cfg
 
 
 def phase_deep_bucket(dev, files):
-    """``engine = compact`` on an index past the compact rank bound: the
-    logged fallback to the hybrid over the dense engine, verdicts equal to
-    native exact on 256 queries."""
+    """``engine = compact``, then ``engine = sharded`` (one process), on an
+    index past the compact rank bound: the logged fallback to the hybrid
+    over the dense engine (the sharded dense engine), verdicts equal to
+    native exact on 256 queries; the sharded run must launch
+    ``dense_scan`` and run no plain version. Returns its launches."""
     import contextlib
     import io
 
@@ -1639,6 +1750,7 @@ def phase_deep_bucket(dev, files):
     from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
     from crackling_tpu_torch.ops.issl_compact import RANK_BOUND
     from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
+    from crackling_tpu_torch.parallel.sharded import ShardedDenseIsslScorer
     from crackling_tpu_torch.pipeline.config import ConfigManager
     from crackling_tpu_torch.pipeline.run import Pipeline, verdicts
 
@@ -1654,39 +1766,56 @@ def phase_deep_bucket(dev, files):
     issl = out / "deep.issl"
     write_reference_issl(index, str(issl))
     build_s = time.perf_counter() - t
-    cm = ConfigManager(str(write_config(out, files, "compact", issl)),
-                       lambda m: None)
-    if not cm.isConfigured():
-        fail("the deep-bucket config did not load")
-    buf = io.StringIO()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        scorer = Pipeline(cm, device=dev)._get_issl_scorer()
-    load_s = time.perf_counter() - t
-    if "compact engine unavailable" not in buf.getvalue() \
-            or "using the dense engine" not in buf.getvalue():
-        fail("engine = compact on the deep index did not log the dense "
-             "fallback")
-    if not isinstance(scorer, HybridIsslScorer) \
-            or not isinstance(scorer.dense, DenseIsslScorer):
-        fail(f"the deep index's scorer is {type(scorer).__name__} over "
-             f"{type(getattr(scorer, 'dense', None)).__name__}, not the "
-             "hybrid over the dense engine")
-    t = time.perf_counter()
-    got = scorer.score(queries)
-    sync(dev)
-    score_s = time.perf_counter() - t
-    want = native.exact_score_native(scorer.index, queries, 4, 75.0, "and")
-    if not np.array_equal(verdicts(*got, 75.0, "and"),
-                          verdicts(*want, 75.0, "and")):
-        fail("deep-bucket verdicts differ from the native exact scorer")
-    emit({"phase": "deep_bucket", "sites": index.num_sites,
-          "deepest_bucket": deepest, "queries": int(queries.shape[0]),
-          "rescored": scorer.last_rescored,
-          "rescorer": type(scorer._exact).__name__ if scorer._exact
-          else None, "index_build_s": build_s, "pipeline_load_s": load_s,
-          "score_s": score_s,
-          "accepted": int(verdicts(*got, 75.0, "and").sum())})
+    want = verdicts(*native.exact_score_native(index, queries, 4, 75.0,
+                                               "and"), 75.0, "and")
+    kernels = kernel_counters()
+    for engine, log_lines, dense_type in (
+            ("compact", ("compact engine unavailable",
+                         "using the dense engine"), DenseIsslScorer),
+            ("sharded", ("sharded compact unavailable",
+                         "using the sharded dense engine"),
+             ShardedDenseIsslScorer)):
+        cm = ConfigManager(str(write_config(out, files, engine, issl)),
+                           lambda m: None)
+        if not cm.isConfigured():
+            fail("the deep-bucket config did not load")
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            scorer = Pipeline(cm, device=dev)._get_issl_scorer()
+        load_s = time.perf_counter() - t
+        if not all(ln in buf.getvalue() for ln in log_lines):
+            fail(f"engine = {engine} on the deep index did not log the "
+                 "dense fallback")
+        if not isinstance(scorer, HybridIsslScorer) \
+                or not isinstance(scorer.dense, dense_type):
+            fail(f"the deep index's scorer is {type(scorer).__name__} over "
+                 f"{type(getattr(scorer, 'dense', None)).__name__}, not the "
+                 f"hybrid over {dense_type.__name__}")
+        reset_counters(kernels)
+        t = time.perf_counter()
+        got = scorer.score(queries)
+        sync(dev)
+        score_s = time.perf_counter() - t
+        launches, plain_calls = read_counters(kernels)
+        if not np.array_equal(verdicts(*got, 75.0, "and"), want):
+            fail(f"deep-bucket verdicts (engine = {engine}) differ from the "
+                 "native exact scorer")
+        if torch_is_cuda(dev) and (launches["dense_scan"] <= 0
+                                   or any(plain_calls.values())):
+            fail(f"the deep index's engine = {engine} run launched "
+                 f"{launches} with plain calls {plain_calls}")
+        emit({"phase": "deep_bucket", "engine": engine,
+              "sites": index.num_sites, "deepest_bucket": deepest,
+              "queries": int(queries.shape[0]),
+              "rescored": scorer.last_rescored,
+              "rescorer": type(scorer._exact).__name__ if scorer._exact
+              else None, "index_build_s": build_s,
+              "pipeline_load_s": load_s, "score_s": score_s,
+              "launches": launches, "plain_calls": plain_calls,
+              "accepted": int(verdicts(*got, 75.0, "and").sum())})
+        del scorer
+    return launches["dense_scan"]
 
 
 def phase_hybrid_methods(dev, fast):
@@ -1738,32 +1867,52 @@ def torch_is_cuda(dev):
     return torch.device(dev).type == "cuda"
 
 
+def kernel_counters():
+    """Every kernel's wrapper and its plain version, by kernel name: the
+    wrapper counts its launches (``.launches``), the plain version its
+    calls (``.calls``)."""
+    from crackling_tpu_torch.ops import compact_finder as cf
+    from crackling_tpu_torch.ops import compact_onehot as co
+    from crackling_tpu_torch.ops import fullscan as fs
+    from crackling_tpu_torch.ops import mxu_finder as mf
+
+    return {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
+            "compact_finder_onehot": (co.compact_finder_onehot,
+                                      co.compact_finder_onehot_plain),
+            "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
+            "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
+            "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
+
+
+def reset_counters(kernels):
+    for kernel, plain in kernels.values():
+        kernel.launches = 0
+        plain.calls = 0
+
+
+def read_counters(kernels):
+    """(launches, plain calls), each by kernel name."""
+    return ({k: kp[0].launches for k, kp in kernels.items()},
+            {k: kp[1].calls for k, kp in kernels.items()})
+
+
 def phase_pipeline(dev, files, engine, onehot=False):
     """``Crackling -c`` with ``[tpu] engine = <engine>`` (and, with
     ``onehot``, CRACKLING_TPU_COMPACT_ONEHOT=1 for the run). Every kernel's
     launch count and its plain version's call count are set to 0 just
     before the run and read just after: the kernel that engine runs (the
-    compact finder for ``auto``, the one-hot finder for ``auto`` with the
-    variable, the neighbour finder for ``exact``, ``dense_scan`` for
-    ``dense``, ``bucket_scan`` for ``pallas``) must have launched, and no
-    plain version may have run; with the variable, the packed compact
-    finder must not have launched. Returns (launches of that kernel,
-    rows)."""
-    from crackling_tpu_torch.constants import GUIDE_COLUMNS
-    from crackling_tpu_torch.ops import compact_finder as cf
-    from crackling_tpu_torch.ops import compact_onehot as co
-    from crackling_tpu_torch.ops import fullscan as fs
-    from crackling_tpu_torch.ops import mxu_finder as mf
+    compact finder for ``auto`` and ``sharded``, the one-hot finder for
+    ``auto`` with the variable, the neighbour finder for ``exact``,
+    ``dense_scan`` for ``dense``, ``bucket_scan`` for ``pallas``) must have
+    launched, and no plain version may have run; with the variable, the
+    packed compact finder must not have launched. Returns (launches of
+    that kernel, rows)."""
     from crackling_tpu_torch.utils import cli
 
-    kernels = {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
-               "compact_finder_onehot": (co.compact_finder_onehot,
-                                         co.compact_finder_onehot_plain),
-               "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
-               "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
-               "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
-    main = {"auto": "compact_finder", "exact": "mxu_finder",
-            "dense": "dense_scan", "pallas": "bucket_scan"}[engine]
+    kernels = kernel_counters()
+    main = {"auto": "compact_finder", "sharded": "compact_finder",
+            "exact": "mxu_finder", "dense": "dense_scan",
+            "pallas": "bucket_scan"}[engine]
     if onehot:
         main = "compact_finder_onehot"
     name = f"{engine}_onehot" if onehot else engine
@@ -1779,9 +1928,7 @@ def phase_pipeline(dev, files, engine, onehot=False):
     if onehot:
         os.environ["CRACKLING_TPU_COMPACT_ONEHOT"] = "1"
     # the main path's run: counts start at 0 just before, are read after
-    for kernel, plain in kernels.values():
-        kernel.launches = 0
-        plain.calls = 0
+    reset_counters(kernels)
     t = time.perf_counter()
     try:
         cli.main_crackling(["-c", str(cfg)])
@@ -1789,8 +1936,7 @@ def phase_pipeline(dev, files, engine, onehot=False):
     finally:
         os.environ.pop("CRACKLING_TPU_COMPACT_ONEHOT", None)
     wall = time.perf_counter() - t
-    launches = {k: kp[0].launches for k, kp in kernels.items()}
-    plain_calls = {k: kp[1].calls for k, kp in kernels.items()}
+    launches, plain_calls = read_counters(kernels)
     if on_gpu:
         if launches[main] <= 0:
             fail(f"Crackling (engine = {name}) ran without launching "
@@ -1801,10 +1947,28 @@ def phase_pipeline(dev, files, engine, onehot=False):
         if any(plain_calls.values()):
             fail(f"a plain kernel version ran on the GPU path: "
                  f"{plain_calls}")
+    rows, scored = read_guides(out / "smoke-guides.txt")
+    col = {c: i for i, c in enumerate(rows[0])}
+    metrics = json.loads((out / "smoke-guides.txt.metrics.json").read_text())
+    emit({"phase": "pipeline", "engine": name, "guides": len(rows) - 1,
+          "scored": len(scored),
+          "accepted": sum(r[col["passedOffTargetScore"]] == "1"
+                          for r in scored),
+          "kernel": main, "launches": launches,
+          "plain_calls": plain_calls, "wall_s": wall,
+          "stage_seconds": metrics["stage_seconds"]})
+    return launches[main], rows
+
+
+def read_guides(path):
+    """A pipeline CSV's rows and its scored rows, after the checks every
+    run must pass: the 26-column header, at least one scored guide, scores
+    in (0, 100]."""
     import csv
 
-    out_csv = out / "smoke-guides.txt"
-    with open(out_csv) as fp:
+    from crackling_tpu_torch.constants import GUIDE_COLUMNS
+
+    with open(path) as fp:
         rows = list(csv.reader(fp))
     if rows[0] != GUIDE_COLUMNS or len(rows[0]) != 26:
         fail("pipeline CSV header is not the 26-column reference header")
@@ -1817,15 +1981,118 @@ def phase_pipeline(dev, files, engine, onehot=False):
         for c in ("mitOfftargetscore", "cfdOfftargetscore"):
             if not 0.0 < float(r[col[c]]) <= 100.0:
                 fail(f"{c} out of (0, 100]: {r[col[c]]}")
-    metrics = json.loads((out / "smoke-guides.txt.metrics.json").read_text())
-    emit({"phase": "pipeline", "engine": name, "guides": len(rows) - 1,
-          "scored": len(scored),
-          "accepted": sum(r[col["passedOffTargetScore"]] == "1"
-                          for r in scored),
-          "kernel": main, "launches": launches,
-          "plain_calls": plain_calls, "wall_s": wall,
-          "stage_seconds": metrics["stage_seconds"]})
-    return launches[main], rows
+    return rows, scored
+
+
+def crackling_worker(cfg):
+    """One process of the two-process run: ``Crackling -c cfg`` through its
+    CLI entry point, then a line of its own with its kernel launch counts,
+    plain-version calls and wall seconds, and the mean ms of the sharded
+    engines' merge (one gloo ``all_reduce`` of two f64 rows) at
+    N_QUERIES queries, over 10 calls after a barrier."""
+    import torch
+
+    from crackling_tpu_torch.utils import cli
+
+    kernels = kernel_counters()
+    reset_counters(kernels)
+    t = time.perf_counter()
+    cli.main_crackling(["-c", cfg])
+    wall = time.perf_counter() - t
+    launches, plain_calls = read_counters(kernels)
+    sums = torch.zeros((2, N_QUERIES), dtype=torch.float64)
+    torch.distributed.barrier()
+    t = time.perf_counter()
+    for _ in range(10):
+        torch.distributed.all_reduce(sums)
+    merge_ms = (time.perf_counter() - t) * 1e3 / 10
+    emit({"worker": os.environ.get("CRACKLING_PROCESS_ID"),
+          "launches": launches, "plain_calls": plain_calls, "wall_s": wall,
+          "merge_ms": merge_ms})
+
+
+def phase_two_process(dev, files, rows_auto, card):
+    """``Crackling -c`` in two processes on the one card: ``[tpu] engine =
+    sharded``, ``process-count = 2``, a free localhost port, process ids
+    0 and 1 from CRACKLING_PROCESS_ID, an output directory each, the
+    bench ``.issl``. Both must exit 0 within the timeout, each having
+    launched the compact finder and run no plain version; their CSVs must
+    be byte-equal and their ``passedOffTargetScore`` the ``auto`` run's,
+    row by row. Returns each process's compact finder launches. (Off the
+    GPU, for a rehearsal, each process runs on the CPU.)"""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    base = CACHE / "two_process"
+    shutil.rmtree(base, ignore_errors=True)
+    procs, outs = [], []
+    for pid in (0, 1):
+        out = base / f"proc{pid}"
+        out.mkdir(parents=True)
+        outs.append(out)
+        cfg = write_config(out, files, "sharded", tpu_extra=(
+            f"process-count = 2\ncoordinator-address = localhost:{port}\n"
+            + ("" if torch_is_cuda(dev) else "cpu-devices = 1\n")))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("CRACKLING_PLATFORM", "CRACKLING_PROCESS_ID")}
+        env["CRACKLING_PROCESS_ID"] = str(pid)
+        # output to files, not pipes: a full pipe would stall a process
+        # while the other waits for it in a collective
+        with open(out / "worker.out", "w") as fo, \
+                open(out / "worker.err", "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.crackling_worker(sys.argv[1])", str(cfg)],
+                cwd=ROOT, env=env, stdout=fo, stderr=fe))
+
+    def stop_all():
+        for q in procs:
+            q.kill()
+            q.wait()
+
+    results = []
+    t = time.perf_counter()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            stop_all()
+            fail(f"the two-process run did not end in 600 s (process {pid})")
+        lines = [ln for ln in (out / "worker.out").read_text().splitlines()
+                 if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            stop_all()
+            fail(f"process {pid} of the two-process run failed (exit "
+                 f"{p.returncode}):\n"
+                 f"{(out / 'worker.err').read_text()[-3000:]}")
+        print(lines[-1], flush=True)
+        results.append(json.loads(lines[-1]))
+    wall = time.perf_counter() - t
+    for pid, res in enumerate(results):
+        if not torch_is_cuda(dev):
+            break
+        if res["launches"]["compact_finder"] <= 0 \
+                or any(res["plain_calls"].values()):
+            fail(f"process {pid} of the two-process run launched "
+                 f"{res['launches']} with plain calls {res['plain_calls']}")
+    csvs = [out / "smoke-guides.txt" for out in outs]
+    if csvs[0].read_bytes() != csvs[1].read_bytes():
+        fail("the two processes' CSVs differ")
+    rows, scored = read_guides(csvs[0])
+    same_verdicts(rows_auto, rows, "sharded in two processes")
+    stages = [json.loads((out / "smoke-guides.txt.metrics.json")
+                         .read_text())["stage_seconds"] for out in outs]
+    emit({"phase": "two_process", "card": card, "guides": len(rows) - 1,
+          "scored": len(scored), "both_wall_s": wall,
+          "process_wall_s": [r["wall_s"] for r in results],
+          "merge_ms": [r["merge_ms"] for r in results],
+          "offtarget_scoring_s": [st.get("offtarget_scoring")
+                                  for st in stages],
+          "stage_seconds": stages,
+          "launches": [r["launches"] for r in results]})
+    return [r["launches"]["compact_finder"] for r in results]
 
 
 def same_verdicts(rows_auto, rows, engine):
@@ -1981,6 +2248,8 @@ def main():
     phase_profile(dev, lambda: scorer.score_sums(queries), "compact.")
     del scorer
     torch.cuda.empty_cache()
+    sharded_page = phase_sharded_page(dev, index, queries, card)
+    torch.cuda.empty_cache()
 
     oh = onehot_scorer(index, dev)
     onehot_err = phase_onehot_kernel_vs_plain(dev, oh, queries)
@@ -2009,12 +2278,15 @@ def main():
     scan_stats = phase_scan_page(dev, scan, queries, card)
     del scan
     torch.cuda.empty_cache()
-    phase_deep_bucket(dev, files)
+    deep_sharded = phase_deep_bucket(dev, files)
     torch.cuda.empty_cache()
     for fast in ("compact", "dense"):
         phase_hybrid_methods(dev, fast)
 
     compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
+    sharded_run, rows = phase_pipeline(dev, files, "sharded")
+    same_verdicts(rows_auto, rows, "sharded")
+    two_process = phase_two_process(dev, files, rows_auto, card)
     onehot["launches"], rows = phase_pipeline(dev, files, "auto", onehot=True)
     same_verdicts(rows_auto, rows, "auto with the one-hot finder")
     mxu["launches"], rows = phase_pipeline(dev, files, "exact")
@@ -2032,7 +2304,10 @@ def main():
          "source": "crackling_tpu_torch/csrc/compact_finder.cu",
          "replaces": "crackling_tpu/ops/issl_compact.py:247",
          "max_abs_err": compact_err, "max_rel_err": compact_err,
-         "library_ms": None, **compact},
+         "library_ms": None, **compact,
+         "sharded_launches": {"page_by_shards": sharded_page,
+                              "crackling_sharded": sharded_run,
+                              "two_process": two_process}},
         {"name": "compact_finder_onehot", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/compact_onehot.cu",
          "replaces": "crackling_tpu/ops/issl_compact.py:350",
@@ -2048,7 +2323,8 @@ def main():
          "replaces": "crackling_tpu/ops/issl_dense.py:66",
          "max_abs_err": fullscan_err["dense_scan"][0],
          "max_rel_err": fullscan_err["dense_scan"][1],
-         "library_ms": None, **dense_stats},
+         "library_ms": None, **dense_stats,
+         "sharded_launches": {"deep_bucket_sharded": deep_sharded}},
         {"name": "bucket_scan", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/fullscan.cu",
          "replaces": "crackling_tpu/ops/issl_pallas.py:62",

@@ -92,13 +92,6 @@ def select_auto_engine(index, device) -> str:
     return "compact"
 
 
-# engines of the JAX package that this package does not have yet, and the
-# ROADMAP item that ports each
-_NOT_PORTED = {
-    "sharded": "queue 1, item 8 (sharded scoring)",
-}
-
-
 def verdicts(mit, cfd, threshold: float, method: str) -> np.ndarray:
     """Accept/reject per the score method (reference Crackling.py:797-835).
 
@@ -133,24 +126,65 @@ def _batched(idx: np.ndarray, page_len: int):
 class Pipeline:
     def __init__(self, config_mngr, device=None):
         self.cm = config_mngr
-        # cuda unless the caller asks for the CPU; raises without a GPU
-        self.device = resolve_device(device)
+        # cuda unless the caller (or [tpu] cpu-devices) asks for the CPU;
+        # raises without a GPU
+        self._local_devices = self._maybe_init_distributed(device)
+        self.device = self._local_devices[0]
         self._issl_scorer = None
         self._genome_index = None
         profile_dir = None
         if config_mngr._parser.has_section("tpu"):
             profile_dir = config_mngr["tpu"].get("profile-dir", None)
         self.metrics = Metrics(profile_dir=profile_dir or None)
-        self._check_single_process()
 
-    def _check_single_process(self):
-        """``[tpu] process-count > 1`` (multi-process scoring) is not
-        ported yet (ROADMAP queue 1, item 8)."""
-        count = int(self.cm["tpu"].get("process-count", "") or "1")
+    def _maybe_init_distributed(self, device):
+        """``[tpu]`` multi-process keys -> ``torch.distributed``; returns
+        this process's devices (``parallel/distributed.local_devices``).
+
+        Keys (all optional; absent => single-process, the default):
+
+        * ``coordinator-address`` — ``host:port`` of process 0
+        * ``process-count`` — world size (> 1 enables multi-process)
+        * ``process-id`` — this process's id; falls back to the
+          ``CRACKLING_PROCESS_ID`` env var so every process can share one
+          config file
+        * ``cpu-devices`` — test mode: N CPU devices per process in place
+          of the GPU (the JAX package's virtual CPU devices)
+        * ``mesh-q`` — query axis size of the ('host','q','shard') mesh
+          used by ``engine = sharded``
+
+        Every process runs the identical pipeline on the identical inputs
+        (give each a distinct ``[output] dir``); the ISSL scoring stage is
+        the collective part — each process loads only its own site ranges
+        and the per-query partial sums are all-reduced across processes,
+        so all processes emit identical scores. On CUDA each process takes
+        card ``process-id % cards``."""
+        from ..parallel import distributed as dist
+
+        tpu = self.cm["tpu"]
+        count = int(tpu.get("process-count", "") or "1")
+        cpu_devices = int(tpu.get("cpu-devices", "") or "0")
+        device = resolve_device("cpu" if cpu_devices else device)
         if count > 1:
-            raise ValueError(
-                "[tpu] process-count > 1: multi-process scoring is not "
-                "ported yet (ROADMAP queue 1, item 8)")
+            addr = tpu.get("coordinator-address", "") or ""
+            if not addr:
+                raise ValueError(
+                    "[tpu] process-count > 1 requires coordinator-address")
+            pid = tpu.get("process-id", "") or os.environ.get(
+                "CRACKLING_PROCESS_ID", "")
+            if pid == "":
+                raise ValueError("[tpu] process-id (or the "
+                                 "CRACKLING_PROCESS_ID env var) is required "
+                                 "when process-count > 1")
+            dist.initialize(addr, count, int(pid))
+        devices = dist.local_devices(device, cpu_devices)
+        if devices[0].type == "cuda":
+            # the kernels launch on the current device
+            torch.cuda.set_device(devices[0])
+        if count > 1:
+            printer(f"torch.distributed: process {dist.process_index()} of "
+                    f"{dist.process_count()} ({len(devices)} devices)")
+        return devices
 
     # -- gating ---------------------------------------------------------
 
@@ -357,10 +391,6 @@ class Pipeline:
                 printer(f"engine auto: {engine} on {self.device} (avg "
                         f"bucket depth "
                         f"{index.num_sites / index.bucket_count:,.0f})")
-        if engine in _NOT_PORTED:
-            raise ValueError(
-                f"[tpu] engine = {engine} is not ported to the PyTorch "
-                f"package yet (ROADMAP {_NOT_PORTED[engine]})")
         if engine == "exact":
             engine = "mxu"
         if engine == "mxu":
@@ -408,6 +438,42 @@ class Pipeline:
             self._issl_scorer = HybridIsslScorer(
                 index, max_dist=md, method=method, threshold=threshold,
                 device=self.device)
+        elif engine == "sharded":
+            # the fastest engine over every local device: site-range index
+            # shards + one all_reduce of the per-query partial sums, with
+            # the hybrid's exact near-threshold re-score over the whole
+            # index on top. Compact engine per shard; dense past the
+            # compact decoder's bucket-depth bound. With [tpu]
+            # process-count > 1 each process loads only its own site
+            # ranges from the .issl file.
+            from ..ops.hybrid import HybridIsslScorer
+            from ..parallel import distributed as dist
+            from ..parallel.sharded import (ShardedCompactIsslScorer,
+                                            ShardedDenseIsslScorer,
+                                            make_mesh)
+
+            if dist.process_count() > 1:
+                if not path.endswith(".issl"):
+                    raise ValueError(
+                        "[tpu] engine = sharded across processes requires "
+                        "the offtarget-sites input to be a reference-"
+                        "format .issl file (per-process site-range "
+                        "loading)")
+                n_q = int(cm["tpu"].get("mesh-q", "") or "1")
+                mesh = dist.host_mesh(n_q=n_q, devices=self._local_devices)
+                printer(f"multihost mesh: {mesh.shape}")
+                fast = dist.multihost_fast_scorer(path, mesh, max_dist=md)
+            else:
+                mesh = make_mesh(n_q=1, devices=self._local_devices)
+                try:
+                    fast = ShardedCompactIsslScorer(index, mesh, max_dist=md)
+                except ValueError as e:
+                    printer(f"sharded compact unavailable ({e}); using "
+                            "the sharded dense engine")
+                    fast = ShardedDenseIsslScorer(index, mesh, max_dist=md)
+            self._issl_scorer = HybridIsslScorer(
+                index, max_dist=md, method=method, threshold=threshold,
+                dense=fast)
         elif engine == "pallas":
             # the scan-style full scan (the JAX package's Pallas engine),
             # with no re-score, as there

@@ -37,20 +37,44 @@ from crackling_tpu_torch.ops.issl_scan import ScanIsslScorer
 from crackling_tpu_torch.ops.issl_flat import IsslScorer
 from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+from crackling_tpu_torch.parallel.distributed import (host_mesh,
+                                                      local_devices)
+from crackling_tpu_torch.parallel.sharded import (ShardedCompactIsslScorer,
+                                                  ShardedDenseIsslScorer,
+                                                  ShardedIsslScorer,
+                                                  make_mesh)
 from crackling_tpu_torch.pipeline.run import Pipeline
 
 index = build_index(np.arange(1, 300, dtype=np.uint64) * 7919)
 raised = {}
 if not torch.cuda.is_available():
     class _CM:
+        # a config with a [tpu] section and nothing else
         _parser = None
+
+        def __init__(self, **tpu):
+            self.tpu = tpu
+
+        def __getitem__(self, section):
+            return self.tpu
+
+    def sharded(cls):
+        return lambda: cls(index, make_mesh(1))
+
     for name, make in (("compact", lambda: CompactIsslScorer(index)),
                        ("dense", lambda: DenseIsslScorer(index)),
                        ("scan", lambda: ScanIsslScorer(index)),
                        ("mxu", lambda: MxuIsslScorer(index)),
                        ("flat", lambda: IsslScorer(index)),
                        ("hybrid", lambda: HybridIsslScorer(index)),
-                       ("pipeline", lambda: Pipeline(_CM()))):
+                       ("pipeline", lambda: Pipeline(_CM())),
+                       ("sharded_flat", sharded(ShardedIsslScorer)),
+                       ("sharded_dense", sharded(ShardedDenseIsslScorer)),
+                       ("sharded_compact", sharded(ShardedCompactIsslScorer)),
+                       ("host_mesh", host_mesh),
+                       ("local_devices", local_devices),
+                       ("pipeline_sharded",
+                        lambda: Pipeline(_CM(engine="sharded")))):
         try:
             make()
             raised[name] = False
@@ -75,6 +99,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "issl_flat", "kernel_build", "fullscan", "issl_dense",
                 "issl_scan"):
         assert f"crackling_tpu_torch.ops.{mod}" in res["mods"]
+    for mod in ("sharded", "distributed"):
+        assert f"crackling_tpu_torch.parallel.{mod}" in res["mods"]
     assert "crackling_tpu_torch.utils.cli" in res["mods"]
     # ... and none of them brought in JAX or the JAX package
     assert res["leaked"] == []
@@ -85,4 +111,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert res["raised"] == {"compact": True, "dense": True,
                                  "scan": True, "mxu": True,
                                  "flat": True, "hybrid": True,
-                                 "pipeline": True}
+                                 "pipeline": True, "sharded_flat": True,
+                                 "sharded_dense": True,
+                                 "sharded_compact": True,
+                                 "host_mesh": True, "local_devices": True,
+                                 "pipeline_sharded": True}

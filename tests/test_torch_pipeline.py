@@ -15,9 +15,11 @@ through its CLI entry point with ``CRACKLING_PLATFORM=cpu``, once per
   reference's order, the flat engine per round, so the last f64 bits may
   differ before ``%f`` rounds them).
 * ``compact`` and ``dense`` are the hybrid over the compact and the
-  dense engine, ``pallas`` the scan-style engine alone: every column but
-  the two scores identical, verdicts included; scores within 1e-3 (f32
-  per-hit terms of a full scan vs f64).
+  dense engine, ``sharded`` the hybrid over the compact engine on two
+  site-range shards (``[tpu] cpu-devices = 2``), ``pallas`` the
+  scan-style engine alone: every column but the two scores identical,
+  verdicts included; scores within 1e-3 (f32 per-hit terms of a full
+  scan vs f64).
 """
 
 import csv
@@ -25,15 +27,18 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from test_pipeline import mini_world  # noqa: F401  (shared fixture)
 
 SCORE_COLS = ("mitOfftargetscore", "cfdOfftargetscore")
-ENGINES = ["auto", "exact", "compact", "dense", "pallas"]
+ENGINES = ["auto", "exact", "compact", "dense", "pallas", "sharded"]
 SCORE_TOL = {"auto": 0.0, "exact": 1e-9, "compact": 1e-3, "dense": 1e-3,
-             "pallas": 1e-3}
+             "pallas": 1e-3, "sharded": 1e-3}
+# the JAX package's virtual CPU devices: two shards on the CPU
+TPU_EXTRA = {"sharded": "cpu-devices = 2\n"}
 
 
 def _config(mini_world, outdir, engine=None):  # noqa: F811
@@ -41,7 +46,7 @@ def _config(mini_world, outdir, engine=None):  # noqa: F811
     text = mini_world["config"].read_text().replace(
         str(mini_world["outdir"]), str(outdir))
     if engine is not None:
-        text += f"\n[tpu]\nengine = {engine}\n"
+        text += f"\n[tpu]\nengine = {engine}\n{TPU_EXTRA.get(engine, '')}"
     cfg = outdir.parent / f"{outdir.name}.ini"
     cfg.write_text(text)
     return cfg
@@ -167,7 +172,54 @@ def test_compact_falls_back_to_dense(mini_world, tmp_path,  # noqa: F811
     assert "using the dense engine" in out
 
 
-def test_only_sharded_is_not_ported():
-    from crackling_tpu_torch.pipeline.run import _NOT_PORTED
+def test_sharded_falls_back_to_sharded_dense(mini_world, tmp_path,  # noqa: F811
+                                             monkeypatch, capsys):
+    """``engine = sharded`` past the compact rank bound logs the JAX
+    package's line and builds the hybrid over the sharded dense engine."""
+    import crackling_tpu_torch.ops.issl_compact as port_compact
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.parallel.sharded import ShardedDenseIsslScorer
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline
 
-    assert set(_NOT_PORTED) == {"sharded"}
+    cm = ConfigManager(str(_config(mini_world, tmp_path / "out",
+                                   "sharded")), lambda m: None)
+    assert cm.isConfigured()
+    monkeypatch.setattr(port_compact, "RANK_BOUND", 1)
+    # [tpu] cpu-devices puts the run on the CPU, whatever the caller asked
+    scorer = Pipeline(cm, device="cuda")._get_issl_scorer()
+    assert isinstance(scorer, HybridIsslScorer)
+    assert isinstance(scorer.dense, ShardedDenseIsslScorer)
+    assert scorer.dense.n_shards == 2 and scorer.band == 1.0
+    assert scorer.dense.device.type == "cpu"
+    out = capsys.readouterr().out
+    assert "sharded compact unavailable" in out
+    assert "using the sharded dense engine" in out
+
+
+@pytest.mark.parametrize("engine", ["auto", "exact", "mxu", "compact",
+                                    "dense", "sharded", "pallas", "xla"])
+def test_every_jax_engine_is_accepted(mini_world, tmp_path,  # noqa: F811
+                                      engine):
+    """Every ``[tpu] engine`` of the JAX package builds a scorer in the
+    port; an unknown name is refused."""
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline
+
+    cm = ConfigManager(str(_config(mini_world, tmp_path / "out", engine)),
+                       lambda m: None)
+    assert cm.isConfigured()
+    scorer = Pipeline(cm, device="cpu")._get_issl_scorer()
+    mit, cfd = scorer.score(np.zeros(1, dtype=np.uint64))
+    assert mit.shape == cfd.shape == (1,)
+
+
+def test_unknown_engine_is_refused(mini_world, tmp_path):  # noqa: F811
+    from crackling_tpu_torch.pipeline.config import ConfigManager
+    from crackling_tpu_torch.pipeline.run import Pipeline
+
+    cm = ConfigManager(str(_config(mini_world, tmp_path / "out", "nope")),
+                       lambda m: None)
+    assert cm.isConfigured()
+    with pytest.raises(ValueError, match="unknown"):
+        Pipeline(cm, device="cpu")._get_issl_scorer()
