@@ -102,6 +102,23 @@ Phases, each fatal on failure:
     ``pallas`` (``bucket_scan``) on the same files, with no plain version
     run in any; each run's ``passedOffTargetScore`` column must equal the
     ``auto`` run's row by row;
+11a. the batched MFE fold (the ``tpu`` fold backend) on the card: the
+    unique mm10db constructs of the ``auto`` run (its ``ssL1`` column),
+    topped up to at least 4,096 with constructs of the dataset's guides,
+    folded chunk by chunk with ``ops/mfe.fold_chunks`` (chunks of half
+    the card's free memory, at most 4,096 guides) and traced back on the
+    host; every
+    energy within 1e-6 of the native C++ fold's (``fold_batch_native``) on
+    the same codes and every structure equal; printed: guides, chunk size
+    and count, peak ``max_memory_allocated``, each chunk's precompute and
+    DP (CUDA events), host fold and traceback seconds, the whole fold's
+    wall time and guides/s, the native fold's wall time; then a profile
+    of one chunk (its ``mfe.`` spans: precompute, DP, the DP's interior
+    window). Then ``Crackling -c`` with ``engine = auto`` and ``[tpu]
+    rnafold-backend = tpu``: the compact finder must launch with no plain
+    version, its CSV must be byte-equal to the ``auto`` run's (which folds
+    with the native engine), and its secondary-structure stage time is
+    printed beside ``auto``'s;
 11b. ``Crackling -c`` with ``engine = sharded`` in two processes on the
     one card (``process-count = 2``, a free localhost port,
     CRACKLING_PROCESS_ID 0 and 1, an output directory each): each prints
@@ -208,6 +225,12 @@ SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
 PRINT_TIE_RTOL = 1e-12
 METHODS = (("mit", 80.0), ("cfd", 80.0), ("and", 75.0), ("or", 75.0),
            ("avg", 90.0))
+# the fold phase: at least this many constructs, energies held to the
+# native fold's within the cross-engine test's bound (tests/test_mfe.py),
+# and a profile of one chunk of this many guides
+FOLD_MIN_GUIDES = 4096
+FOLD_ENERGY_ATOL = 1e-6
+FOLD_PROFILE_GUIDES = 2048
 
 
 def log(msg):
@@ -1896,9 +1919,10 @@ def read_counters(kernels):
             {k: kp[1].calls for k, kp in kernels.items()})
 
 
-def phase_pipeline(dev, files, engine, onehot=False):
+def phase_pipeline(dev, files, engine, onehot=False, fold=None):
     """``Crackling -c`` with ``[tpu] engine = <engine>`` (and, with
-    ``onehot``, CRACKLING_TPU_COMPACT_ONEHOT=1 for the run). Every kernel's
+    ``onehot``, CRACKLING_TPU_COMPACT_ONEHOT=1 for the run; with ``fold``,
+    ``[tpu] rnafold-backend = <fold>``). Every kernel's
     launch count and its plain version's call count are set to 0 just
     before the run and read just after: the kernel that engine runs (the
     compact finder for ``auto`` and ``sharded``, the one-hot finder for
@@ -1916,10 +1940,14 @@ def phase_pipeline(dev, files, engine, onehot=False):
     if onehot:
         main = "compact_finder_onehot"
     name = f"{engine}_onehot" if onehot else engine
+    if fold:
+        name += f"_{fold}fold"
     out = CACHE / f"pipeline_{name}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    cfg = write_config(out, files, engine)
+    cfg = write_config(out, files, engine,
+                       tpu_extra=f"rnafold-backend = {fold}\n" if fold
+                       else "")
     on_gpu = torch_is_cuda(dev)
     if on_gpu:
         os.environ.pop("CRACKLING_PLATFORM", None)
@@ -1982,6 +2010,119 @@ def read_guides(path):
             if not 0.0 < float(r[col[c]]) <= 100.0:
                 fail(f"{c} out of (0, 100]: {r[col[c]]}")
     return rows, scored
+
+
+def fold_constructs(rows_auto, queries):
+    """The unique mm10db constructs of the ``auto`` run (its ``ssL1``
+    column, RNA form), topped up to FOLD_MIN_GUIDES with the constructs
+    ``'G' + spacer[1:20] + scaffold`` of the dataset's guides. Returns
+    (constructs, how many came from the run)."""
+    from crackling_tpu_torch.codec import sigs_to_strings
+    from crackling_tpu_torch.constants import SCAFFOLD_RNA
+
+    col = rows_auto[0].index("ssL1")
+    seqs = list(dict.fromkeys(r[col] for r in rows_auto[1:]
+                              if r[col] not in ("", "?")))
+    from_run = len(seqs)
+    seen = set(seqs)
+    for g in sigs_to_strings(queries, 20):
+        if len(seqs) >= FOLD_MIN_GUIDES:
+            break
+        s = f"G{g[1:20]}{SCAFFOLD_RNA}".replace("T", "U")
+        if s not in seen:
+            seen.add(s)
+            seqs.append(s)
+    return seqs, from_run
+
+
+def phase_fold(dev, seqs, from_run, card):
+    """The batched MFE fold on the card against the native C++ fold (see
+    the module docstring, 11a)."""
+    import torch
+
+    from crackling_tpu_torch.native import fold_batch_native
+    from crackling_tpu_torch.ops import mfe
+
+    codes = np.stack([mfe.encode_rna(s) for s in seqs])
+    B, n = codes.shape
+    if B < FOLD_MIN_GUIDES:
+        fail(f"only {B} constructs to fold")
+    on_gpu = torch_is_cuda(dev)
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    size = mfe.chunk_size(B, n, torch.device(dev))
+    structures, energies, chunks = [], [], []
+    t0 = t = time.perf_counter()
+    for energy, tables in mfe.fold_chunks(codes, dev):
+        fold_s = time.perf_counter() - t
+        t = time.perf_counter()
+        structures += [mfe.traceback(tables, b) for b in range(len(energy))]
+        energies.append(energy)
+        device_ms = tables.get("device_ms", (None, None))
+        chunks.append({"guides": len(energy),
+                       "precompute_ms": device_ms[0],
+                       "dp_ms": device_ms[1],
+                       "host_fold_s": fold_s,
+                       "traceback_s": time.perf_counter() - t})
+        del tables
+        t = time.perf_counter()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_gpu else None
+    energies = np.concatenate(energies)
+    t = time.perf_counter()
+    native = fold_batch_native(codes)
+    native_s = time.perf_counter() - t
+    if native is None:
+        fail("the native fold library is unavailable")
+    s_nat, e_nat = native
+    err = float(np.abs(energies - e_nat).max())
+    differ = sum(a != b for a, b in zip(structures, s_nat))
+    if not np.isfinite(energies).all() or err > FOLD_ENERGY_ATOL or differ:
+        fail(f"batched fold vs native on {B} constructs: max energy "
+             f"difference {err:.3g} (bound {FOLD_ENERGY_ATOL}), {differ} "
+             f"structures differ")
+    traceback_s = sum(c["traceback_s"] for c in chunks)
+    emit({"phase": "fold", "card": card, "guides": B, "length": n,
+          "from_pipeline": from_run, "chunk": size, "chunks": len(chunks),
+          "guide_bytes": mfe.guide_bytes(n), "peak_bytes": peak,
+          "peak_over_chunk_guide_bytes":
+              peak / (size * mfe.guide_bytes(n)) if on_gpu else None,
+          "precompute_ms": [c["precompute_ms"] for c in chunks],
+          "dp_ms": [c["dp_ms"] for c in chunks],
+          "host_fold_s": [c["host_fold_s"] for c in chunks],
+          "traceback_s": traceback_s,
+          "traceback_ms_per_guide": traceback_s * 1e3 / B,
+          "wall_s": wall, "guides_per_s": B / wall,
+          "native_wall_s": native_s, "max_energy_err": err,
+          "structures_differ": differ})
+    part = codes[:FOLD_PROFILE_GUIDES]
+    phase_profile(dev, lambda: list(mfe.fold_chunks(part, dev)), "mfe.")
+
+
+def phase_fold_pipeline(dev, files):
+    """``Crackling -c`` with ``engine = auto`` and ``[tpu] rnafold-backend
+    = tpu`` after the ``auto`` run (native fold): the compact finder must
+    launch with no plain version (``phase_pipeline``) and the CSV must be
+    byte-equal to ``auto``'s; prints both secondary-structure stage
+    times."""
+    launches, _rows = phase_pipeline(dev, files, "auto", fold="tpu")
+    csv_auto = CACHE / "pipeline_auto" / "smoke-guides.txt"
+    csv_tpu = CACHE / "pipeline_auto_tpufold" / "smoke-guides.txt"
+    if csv_tpu.read_bytes() != csv_auto.read_bytes():
+        fail("Crackling with rnafold-backend = tpu wrote another CSV than "
+             "the auto run (native fold)")
+
+    def ss_seconds(run):
+        path = CACHE / f"pipeline_{run}" / "smoke-guides.txt.metrics.json"
+        return json.loads(path.read_text())["stage_seconds"][
+            "secondary_structure"]
+
+    emit({"phase": "fold_pipeline", "csv_byte_equal": True,
+          "compact_finder_launches": launches,
+          "secondary_structure_s": {"native": ss_seconds("auto"),
+                                    "tpu": ss_seconds("auto_tpufold")}})
+    return launches
 
 
 def crackling_worker(cfg):
@@ -2284,6 +2425,9 @@ def main():
         phase_hybrid_methods(dev, fast)
 
     compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
+    phase_fold(dev, *fold_constructs(rows_auto, queries), card)
+    torch.cuda.empty_cache()
+    phase_fold_pipeline(dev, files)
     sharded_run, rows = phase_pipeline(dev, files, "sharded")
     same_verdicts(rows_auto, rows, "sharded")
     two_process = phase_two_process(dev, files, rows_auto, card)

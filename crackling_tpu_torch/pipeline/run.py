@@ -554,6 +554,7 @@ class Pipeline:
                         cm["rnafold"]["high_energy_threshold"]),
                     parameter_file=cm["rnafold"].get("parameter-file", "")
                     or None,
+                    device=self.device,
                 )
             pg_len = int(cm["rnafold"]["page-length"])
             m = self.filter_mask(t, MODULE_MM10DB)

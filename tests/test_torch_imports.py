@@ -97,11 +97,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("issl_compact", "compact_finder", "compact_onehot",
                 "issl_mxu", "mxu_finder",
                 "issl_flat", "kernel_build", "fullscan", "issl_dense",
-                "issl_scan"):
+                "issl_scan", "mfe"):
         assert f"crackling_tpu_torch.ops.{mod}" in res["mods"]
     for mod in ("sharded", "distributed"):
         assert f"crackling_tpu_torch.parallel.{mod}" in res["mods"]
     assert "crackling_tpu_torch.utils.cli" in res["mods"]
+    assert "crackling_tpu_torch.utils.shims" in res["mods"]
     # ... and none of them brought in JAX or the JAX package
     assert res["leaked"] == []
     # without a GPU, entry points not asked for the CPU refuse to run

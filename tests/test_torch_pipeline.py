@@ -14,6 +14,10 @@ through its CLI entry point with ``CRACKLING_PLATFORM=cpu``, once per
   included; scores within 1e-9 (it sums each query's hits in the
   reference's order, the flat engine per round, so the last f64 bits may
   differ before ``%f`` rounds them).
+* ``auto+tpufold`` is ``auto`` with ``[tpu] rnafold-backend = tpu``: the
+  secondary-structure gate folds with the port's batched DP (on the CPU
+  here) in place of the native engine, and the whole CSV must still be
+  the JAX package's.
 * ``compact`` and ``dense`` are the hybrid over the compact and the
   dense engine, ``sharded`` the hybrid over the compact engine on two
   site-range shards (``[tpu] cpu-devices = 2``), ``pallas`` the
@@ -34,11 +38,18 @@ import torch
 from test_pipeline import mini_world  # noqa: F401  (shared fixture)
 
 SCORE_COLS = ("mitOfftargetscore", "cfdOfftargetscore")
-ENGINES = ["auto", "exact", "compact", "dense", "pallas", "sharded"]
-SCORE_TOL = {"auto": 0.0, "exact": 1e-9, "compact": 1e-3, "dense": 1e-3,
-             "pallas": 1e-3, "sharded": 1e-3}
-# the JAX package's virtual CPU devices: two shards on the CPU
-TPU_EXTRA = {"sharded": "cpu-devices = 2\n"}
+ENGINES = ["auto", "auto+tpufold", "exact", "compact", "dense", "pallas",
+           "sharded"]
+SCORE_TOL = {"auto": 0.0, "auto+tpufold": 0.0, "exact": 1e-9,
+             "compact": 1e-3, "dense": 1e-3, "pallas": 1e-3,
+             "sharded": 1e-3}
+# the JAX package's virtual CPU devices: two shards on the CPU; the
+# batched fold in place of the native one
+TPU_EXTRA = {"sharded": "cpu-devices = 2\n",
+             "auto+tpufold": "rnafold-backend = tpu\n"}
+# the batched fold is thousands of small torch ops: on a loaded host
+# their intra-op thread pools only contend
+ENV_EXTRA = {"auto+tpufold": {"OMP_NUM_THREADS": "1"}}
 
 
 def _config(mini_world, outdir, engine=None):  # noqa: F811
@@ -46,7 +57,8 @@ def _config(mini_world, outdir, engine=None):  # noqa: F811
     text = mini_world["config"].read_text().replace(
         str(mini_world["outdir"]), str(outdir))
     if engine is not None:
-        text += f"\n[tpu]\nengine = {engine}\n{TPU_EXTRA.get(engine, '')}"
+        text += (f"\n[tpu]\nengine = {engine.split('+')[0]}\n"
+                 f"{TPU_EXTRA.get(engine, '')}")
     cfg = outdir.parent / f"{outdir.name}.ini"
     cfg.write_text(text)
     return cfg
@@ -74,7 +86,8 @@ def torch_run(request, mini_world, tmp_path_factory):  # noqa: F811
     engine = request.param
     td = tmp_path_factory.mktemp(f"torch-{engine}")
     cfg = _config(mini_world, td / "out", engine)
-    env = dict(os.environ, CRACKLING_PLATFORM="cpu")
+    env = dict(os.environ, CRACKLING_PLATFORM="cpu",
+               **ENV_EXTRA.get(engine, {}))
     res = subprocess.run(
         [sys.executable, "-m", "crackling_tpu_torch.utils.run_cli",
          "Crackling", "-c", str(cfg)],
@@ -107,7 +120,7 @@ def test_scores_within_tolerance(jax_rows, torch_run):
                 (name, a, b)
             scored += 1
     assert scored > 0, "no guide reached off-target scoring"
-    if engine == "auto":
+    if engine.startswith("auto"):
         assert rows_torch == jax_rows
 
 
