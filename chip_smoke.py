@@ -6,11 +6,11 @@
 Needs one CUDA GPU, ``nvcc`` (PATH or /usr/local/cuda/bin) and ``g++``.
 Phases, each fatal on failure:
 
-1. build the four kernel libraries (nvcc, sm_90a: the compact finder,
-   the one-hot compact finder, the neighbour finder and the full-scan
-   scorers) and the native host library (g++) from the package's
-   sources, in parallel; print the card and each kernel's ``ptxas``
-   registers, shared memory and spills by kernel name;
+1. build the five kernel libraries (nvcc, sm_90a: the compact finder,
+   the one-hot compact finder, the neighbour finder, the full-scan
+   scorers and the compact rescan) and the native host library (g++)
+   from the package's sources, in parallel; print the card and each
+   kernel's ``ptxas`` registers, shared memory and spills by kernel name;
 2. hold the compact finder kernel (int8 tensor-core distance over one-hot
    rows built from the packed lists) against its plain PyTorch version,
    cell for cell (exact), on a small index (max-distance 4, 0 and 2, and
@@ -19,8 +19,10 @@ Phases, each fatal on failure:
    (its own plan, and one whose qb is not a multiple of 8);
 3. score one 65,536-query page at the 27 Mbp operating point (synthetic
    genome, seed 20260816, cached under .cache/chip_smoke/) with the
-   compact engine: time the finder and the decode with CUDA events and
-   the page with the host clock; check a 2,048-query sample against the
+   compact engine: time the finder, the decode and the rescan alone (on
+   the page's own rescan list, at the tuned caps) with CUDA events, the
+   plain rescan and the page with the host clock; the rescan's bound with
+   its operations and bytes terms; check a 2,048-query sample against the
    exact host scorer (sums within rtol 1e-4, hybrid verdicts identical
    for ``and``); then profile one warm page (device busy share, per-span
    device time);
@@ -38,12 +40,19 @@ Phases, each fatal on failure:
     SM, the page wall time and guides/s with each finder, the planes'
     bytes and build time;
 3d. the 65,536-query page with the sharded compact engine at 1, 2 and 4
-    site-range shards listed on the one card: the compact finder must
-    launch shards x pages times, with no plain version, and the sums must
+    site-range shards listed on the one card: the compact finder and the
+    compact rescan must each launch shards x pages times, with no plain
+    version, and the sums must
     lie within rtol 1e-9 of the one-shard page's; page wall (host clock)
     and each shard's finder and decode (CUDA events) timed; at 4 shards a
     2,048-query sample within rtol 1e-4 of the exact sums, hybrid ``and``
     verdicts identical to native exact, and a profile of one warm page;
+3e. (run before 3) hold the compact rescan kernel against its plain
+    version on the same row descriptors, per-query f64 sums within rtol
+    1e-12 / atol 1e-9: every chunk of the small index's live slots as a
+    row, with two padding rows and a row of query n (max-distance 4, 0
+    and 2), the skewed index's own rescan list (superchunk level on) and
+    the 65,536-query page's; each prints its rows, live rows and errors;
 4. hold the neighbour finder kernel (the MXU engine's, an int8
    tensor-core distance screen: K = 64 at slice width 8, 96 at the
    others) against its plain version, cell for cell (exact), on the small
@@ -95,7 +104,8 @@ Phases, each fatal on failure:
 11. ``Crackling -c config.ini`` through its CLI entry point on the GPU
     six times, every kernel's launch counter and plain-call counter
     reset just before each run and read just after: ``engine = auto``
-    (the compact finder must have launched), ``auto`` with
+    (the compact finder must have launched, and in every run the compact
+    rescan as often as a compact finder), ``auto`` with
     ``CRACKLING_TPU_COMPACT_ONEHOT=1`` (the one-hot finder, and not the
     packed one), ``sharded`` in one process (the compact finder), then
     ``exact`` (the neighbour finder), ``dense`` (``dense_scan``) and
@@ -123,7 +133,8 @@ Phases, each fatal on failure:
     one card (``process-count = 2``, a free localhost port,
     CRACKLING_PROCESS_ID 0 and 1, an output directory each): each prints
     its kernel launch counts on a line of its own and must have launched
-    the compact finder with no plain version; both must exit 0, their
+    the compact finder and as often the compact rescan, with no plain
+    version; both must exit 0, their
     CSVs must be byte-equal and their ``passedOffTargetScore`` the
     ``auto`` run's;
 12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
@@ -209,6 +220,17 @@ FULLSCAN_HIT_OPS = 64
 # the full-scan kernels against their plain versions: f64 sums of the
 # same f32 terms, summed in another order
 FULLSCAN_RTOL, FULLSCAN_ATOL = 1e-12, 1e-9
+# the compact rescan's bound: per (row, column) pair of a live row ~20
+# 32-bit operations for the screen (2 xor, 2 shift, 2 or, 2 and of the
+# pair collapse, 2 popc, an add and a compare, the earlier-slice test's
+# or, subtract, and-not, and, compare, the column test); each hit the
+# full-scan scorers' ~64; bytes, each input read once: the 8-B entries of
+# the distinct chunks the live rows cover (the slots of one bucket share
+# its chunks), the 4-B occurrence of every distinct hit entry and the 4-B
+# MIT table entry of every distinct hit mask, the six 8-B row descriptors
+# of every row of the list and the two f64 sums of every query it adds to
+RESCAN_OPS_PER_PAIR = 20
+RESCAN_DESCRIPTOR_BYTES = 6 * 8
 # the scan-style engine's page (its default query_page)
 SCAN_PAGE = 8192
 # the MXU engine's page (its default query_page)
@@ -437,7 +459,7 @@ def phase_build():
     from crackling_tpu_torch.ops.kernel_build import build_library
 
     sources = ("compact_finder.cu", "compact_onehot.cu", "mxu_finder.cu",
-               "fullscan.cu")
+               "fullscan.cu", "compact_rescan.cu")
     with ThreadPoolExecutor(len(sources) + 1) as ex:
         kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
@@ -574,9 +596,180 @@ def finder_bound_ms(scorer, q, qsp, C):
     return terms[by] * 1e3, by, pairs, {k: v * 1e3 for k, v in terms.items()}
 
 
+# -- the compact rescan -----------------------------------------------------
+
+
+def rescan_lists(scorer):
+    """The rescan's flat lists and score tables of ``scorer``."""
+    return scorer.entries.reshape(-1), scorer.occ.reshape(-1), scorer.tables
+
+
+def rescan_options(scorer, n):
+    return dict(n=n, scan_width=scorer._scan_width, max_dist=scorer.max_dist)
+
+
+def zero_sums(n, dev):
+    import torch
+
+    return [torch.zeros(n + 1, dtype=torch.float64, device=dev)
+            for _ in range(2)]
+
+
+def page_rescan_rows(scorer, queries):
+    """The rescan list the scorer's decode builds for one page of
+    ``queries`` (``decode_tree``), and the page's query count."""
+    q, qsp = finder_inputs(scorer, queries)
+    return scorer.decode_tree(q, qsp, scorer.finder(q, qsp)).rows, q.numel()
+
+
+def all_chunk_rows(scorer, queries):
+    """A rescan list of every chunk of every live slot's bucket, as if each
+    held 3 or more hits, ending in two padding rows and a row whose query
+    is ``n``; and the page's query count."""
+    import torch
+
+    from crackling_tpu_torch.ops.compact_rescan import RescanRows
+
+    q, qsp = finder_inputs(scorer, queries)
+    n, dev, chunk = q.numel(), q.device, scorer.chunk
+    nch = (scorer.bucket_lens.long() + chunk - 1) // chunk
+    cells = ((qsp < n)[..., None]
+             & (torch.arange(scorer._nchmax, device=dev)
+                < nch[:, :, None, None]))
+    s, b, j, c = torch.nonzero(cells, as_tuple=True)
+    if not s.numel():
+        fail("the small index gave no chunk with a live slot")
+    first = c * chunk
+    hq = torch.cat([qsp[s, b, j].long(), qsp.new_tensor([0, 0, n]).long()])
+    ridx = torch.arange(hq.numel(), device=dev)
+    ridx[-3:-1] = -1
+
+    def ext(t):
+        return torch.cat([t, t[:1].expand(3)])
+
+    return RescanRows(
+        ridx, q[hq.clamp(max=n - 1)], hq,
+        ext(s * scorer.entries.shape[1] + scorer.bucket_offsets[s, b]
+            + first),
+        ext(scorer.bucket_lens[s, b].long() - first), ext(s)), n
+
+
+def compare_rescan(scorer, rows, n):
+    """Kernel vs plain version on the same rows into fresh sums; fails
+    outside rtol 1e-12 / atol 1e-9 (f64 sums of the same f32 terms in
+    another order). Returns (max abs err, max rel err, rows, live rows)."""
+    import torch
+
+    from crackling_tpu_torch.ops.compact_rescan import (compact_rescan,
+                                                        compact_rescan_plain)
+
+    dev = rows.q.device
+    got, want = zero_sums(n, dev), zero_sums(n, dev)
+    opts = rescan_options(scorer, n)
+    compact_rescan(rows, *rescan_lists(scorer), *got, **opts)
+    compact_rescan_plain(rows, *rescan_lists(scorer), *want, **opts)
+    sync(dev)
+    for name, g, w in zip(("mit", "cfd"), got, want):
+        if not torch.allclose(g, w, rtol=FULLSCAN_RTOL, atol=FULLSCAN_ATOL):
+            fail(f"rescan kernel {name} sums disagree with its plain "
+                 f"version (max abs err {float((g - w).abs().max()):.3e})")
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel_err = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+                  for g, w in zip(got, want))
+    live = int(((rows.ridx >= 0) & (rows.hq < n)).sum())
+    return abs_err, rel_err, rows.ridx.numel(), live
+
+
+def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
+    """Phase 3e: the rescan kernel against its plain version on the same
+    row descriptors: every chunk of the small index's live slots at
+    max-distance 4, 0 and 2 (with padding rows and a row of query n), the
+    skewed index's own rescan list (superchunk level on) and the
+    65,536-query page's. Returns the largest absolute error."""
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+
+    errs = []
+
+    def check(what, sc, rows, n, **extra):
+        abs_err, rel_err, total, live = compare_rescan(sc, rows, n)
+        if not live:
+            fail(f"the rescan comparison on {what} has no live row")
+        errs.append(abs_err)
+        emit({"phase": "rescan_kernel_vs_plain", "input": what,
+              "max_dist": sc.max_dist, "rows": total, "live_rows": live,
+              **extra, "max_abs_err": abs_err, "max_rel_err": rel_err})
+
+    index, queries = small_world()
+    for max_dist in (4, 0, 2):
+        sc = CompactIsslScorer(index, max_dist=max_dist, chunk=1024,
+                               device=dev)
+        check("small, every chunk", sc, *all_chunk_rows(sc, queries))
+    index, queries = skewed_world()
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device=dev)
+    if sc.superchunk <= 0:
+        fail(f"skewed index did not turn the superchunk level on "
+             f"(nchmax {sc._nchmax})")
+    check("skewed, its rescan list", sc, *page_rescan_rows(sc, queries),
+          superchunk=sc.superchunk)
+    check("bench page, its rescan list", bench_scorer,
+          *page_rescan_rows(bench_scorer, bench_queries))
+    return max(errs)
+
+
+def rescan_bound_ms(scorer, rows, n):
+    """Least time for the rescan's work on these rows: the larger of its
+    32-bit operations (RESCAN_OPS_PER_PAIR per pair of a live row below its
+    live length and scan width, FULLSCAN_HIT_OPS per hit) over the ALU peak
+    and its bytes (each input read once: the distinct chunks' entries, the
+    distinct hits' occurrences and table entries, the list's descriptors,
+    two f64 sums per query it adds to) over HBM bandwidth. Returns (ms,
+    bound by, pairs, hits, terms in ms, distinct entries read)."""
+    import torch
+
+    from crackling_tpu_torch.ops.bits import (SIG40, collapse_pairs,
+                                              compress_even_bits,
+                                              earlier_slice_clean, popcount)
+
+    live_row = (rows.ridx >= 0) & (rows.hq < n)
+    width = scorer._scan_width
+    cols = torch.arange(width, device=rows.q.device)
+    ent = scorer.entries.reshape(-1)
+    pairs = hits = 0
+    hit_pos, hit_mask = [], []
+    for k in range(0, rows.ridx.numel(), 4096):
+        sl = slice(k, k + 4096)
+        inrow = (cols[None, :] < rows.live[sl, None]) & live_row[sl, None]
+        pos = rows.start[sl, None] + cols[None, :]
+        c40 = collapse_pairs((ent[pos] ^ rows.q[sl, None]) & SIG40)
+        hit = (inrow & (popcount(c40) <= scorer.max_dist)
+               & ~earlier_slice_clean(c40, rows.s[sl, None]))
+        pairs += int(inrow.sum())
+        hits += int(hit.sum())
+        hit_pos.append(pos[hit])
+        hit_mask.append(compress_even_bits(c40[hit]))
+    # the rows of one chunk share its start and its live length
+    starts, inv = torch.unique(rows.start[live_row], return_inverse=True)
+    span = torch.zeros_like(starts).scatter_(
+        0, inv, rows.live[live_row].clamp(min=0, max=width))
+    entries_read = int(span.sum())
+    queries = int(torch.unique(rows.hq[live_row]).numel())
+    nbytes = (entries_read * 8
+              + 4 * int(torch.unique(torch.cat(hit_pos)).numel())
+              + 4 * int(torch.unique(torch.cat(hit_mask)).numel())
+              + rows.ridx.numel() * RESCAN_DESCRIPTOR_BYTES + queries * 16)
+    terms = {"operations": (pairs * RESCAN_OPS_PER_PAIR
+                            + hits * FULLSCAN_HIT_OPS) / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    return (terms[by] * 1e3, by, pairs, hits,
+            {k: v * 1e3 for k, v in terms.items()}, entries_read)
+
+
 def phase_scorer(dev, scorer, queries, card):
     from crackling_tpu_torch import native
     from crackling_tpu_torch.ops.compact_finder import compact_finder_plain
+    from crackling_tpu_torch.ops.compact_rescan import (compact_rescan,
+                                                        compact_rescan_plain)
     from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
     from crackling_tpu_torch.pipeline.run import verdicts
 
@@ -605,6 +798,22 @@ def phase_scorer(dev, scorer, queries, card):
     sync(dev)
     plain_ms = (time.perf_counter() - t) * 1e3
     bound_ms, bound_by, pairs, terms = finder_bound_ms(scorer, q, qsp, C)
+
+    # the rescan alone, on the page's own list at the tuned caps
+    rows = scorer.decode_tree(q, qsp, fo).rows
+    n = q.numel()
+    sums = zero_sums(n, dev)
+    opts = rescan_options(scorer, n)
+    rescan_ms = timed_ms(lambda: compact_rescan(
+        rows, *rescan_lists(scorer), *sums, **opts), 10, dev)
+    sync(dev)
+    t = time.perf_counter()
+    compact_rescan_plain(rows, *rescan_lists(scorer), *sums, **opts)
+    sync(dev)
+    rescan_plain_ms = (time.perf_counter() - t) * 1e3
+    (rescan_bound, rescan_by, rescan_pairs, rescan_hits, rescan_terms,
+     rescan_entries) = rescan_bound_ms(scorer, rows, n)
+    del sums
 
     # the sample against the exact host scorer (no early exit: raw sums)
     rng = np.random.default_rng(SEED + 1)
@@ -646,13 +855,22 @@ def phase_scorer(dev, scorer, queries, card):
           "decode_ms": decode_ms, "finder_plain_ms": plain_ms,
           "finder_bound_ms": bound_ms, "finder_bound_by": bound_by,
           "finder_bound_terms_ms": terms,
+          "rescan_rows": rows.ridx.numel(),
+          "rescan_live_rows": int(((rows.ridx >= 0) & (rows.hq < n)).sum()),
+          "rescan_pairs": rescan_pairs, "rescan_hits": rescan_hits,
+          "rescan_distinct_entries": rescan_entries,
+          "rescan_ms": rescan_ms, "rescan_plain_ms": rescan_plain_ms,
+          "rescan_bound_ms": rescan_bound, "rescan_bound_by": rescan_by,
+          "rescan_bound_terms_ms": rescan_terms,
           "compact_guides_per_s": queries.shape[0] / page_s,
           "hybrid_page_s": hybrid_s,
           "hybrid_guides_per_s": queries.shape[0] / hybrid_s,
           "rescored": hyb.last_rescored,
           "sample_max_rel_err": rel_err})
-    return dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bound_by == "bytes" else "operations")
+    return (dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by="bytes" if bound_by == "bytes" else "operations"),
+            dict(ms=rescan_ms, plain_ms=rescan_plain_ms,
+                 bound_ms=rescan_bound, bound_by=rescan_by))
 
 
 def phase_profile(dev, run, prefix):
@@ -1181,9 +1399,11 @@ def phase_sharded_page(dev, index, queries, card):
         pages = k * -(-queries.shape[0] // sc.engines[0][0].query_page)
         launches[k] = got["compact_finder"]
         if torch_is_cuda(dev) and (launches[k] != pages
+                                   or got["compact_rescan"] != pages
                                    or any(plain_calls.values())):
             fail(f"the {k}-shard page launched {got} with plain calls "
-                 f"{plain_calls}; expected {pages} compact finder launches")
+                 f"{plain_calls}; expected {pages} compact finder and "
+                 "rescan launches")
         walls += host_walls(lambda: sc.score_sums(queries), dev, reps=2)
         finder_ms, decode_ms = [], []
         for eng in sc.engines[0]:
@@ -1896,12 +2116,14 @@ def kernel_counters():
     calls (``.calls``)."""
     from crackling_tpu_torch.ops import compact_finder as cf
     from crackling_tpu_torch.ops import compact_onehot as co
+    from crackling_tpu_torch.ops import compact_rescan as cr
     from crackling_tpu_torch.ops import fullscan as fs
     from crackling_tpu_torch.ops import mxu_finder as mf
 
     return {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
             "compact_finder_onehot": (co.compact_finder_onehot,
                                       co.compact_finder_onehot_plain),
+            "compact_rescan": (cr.compact_rescan, cr.compact_rescan_plain),
             "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
             "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
             "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
@@ -1928,9 +2150,9 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
     compact finder for ``auto`` and ``sharded``, the one-hot finder for
     ``auto`` with the variable, the neighbour finder for ``exact``,
     ``dense_scan`` for ``dense``, ``bucket_scan`` for ``pallas``) must have
-    launched, and no plain version may have run; with the variable, the
-    packed compact finder must not have launched. Returns (launches of
-    that kernel, rows)."""
+    launched, the compact rescan as often as a compact finder, and no plain
+    version may have run; with the variable, the packed compact finder must
+    not have launched. Returns (launches by kernel, rows)."""
     from crackling_tpu_torch.utils import cli
 
     kernels = kernel_counters()
@@ -1972,6 +2194,7 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
         if onehot and launches["compact_finder"]:
             fail("Crackling with CRACKLING_TPU_COMPACT_ONEHOT=1 launched the "
                  "packed compact finder")
+        check_rescan_launches(launches, f"Crackling (engine = {name})")
         if any(plain_calls.values()):
             fail(f"a plain kernel version ran on the GPU path: "
                  f"{plain_calls}")
@@ -1985,7 +2208,16 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
           "kernel": main, "launches": launches,
           "plain_calls": plain_calls, "wall_s": wall,
           "stage_seconds": metrics["stage_seconds"]})
-    return launches[main], rows
+    return launches, rows
+
+
+def check_rescan_launches(launches, what):
+    """Fail unless the compact rescan launched once per compact finder
+    launch (the page program runs one after the other)."""
+    finders = launches["compact_finder"] + launches["compact_finder_onehot"]
+    if launches["compact_rescan"] != finders:
+        fail(f"{what} launched the compact rescan {launches['compact_rescan']}"
+             f" times for {finders} compact finder launches")
 
 
 def read_guides(path):
@@ -2107,6 +2339,7 @@ def phase_fold_pipeline(dev, files):
     byte-equal to ``auto``'s; prints both secondary-structure stage
     times."""
     launches, _rows = phase_pipeline(dev, files, "auto", fold="tpu")
+    launches = launches["compact_finder"]
     csv_auto = CACHE / "pipeline_auto" / "smoke-guides.txt"
     csv_tpu = CACHE / "pipeline_auto_tpufold" / "smoke-guides.txt"
     if csv_tpu.read_bytes() != csv_auto.read_bytes():
@@ -2218,6 +2451,8 @@ def phase_two_process(dev, files, rows_auto, card):
                 or any(res["plain_calls"].values()):
             fail(f"process {pid} of the two-process run launched "
                  f"{res['launches']} with plain calls {res['plain_calls']}")
+        check_rescan_launches(res["launches"],
+                              f"process {pid} of the two-process run")
     csvs = [out / "smoke-guides.txt" for out in outs]
     if csvs[0].read_bytes() != csvs[1].read_bytes():
         fail("the two processes' CSVs differ")
@@ -2385,7 +2620,8 @@ def main():
     index, queries, files = bench_dataset()
     scorer = CompactIsslScorer(index, max_dist=4, device=dev)
     compact_err = phase_kernel_vs_plain(dev, scorer, queries)
-    compact = phase_scorer(dev, scorer, queries, card)
+    rescan_err = phase_rescan_kernel_vs_plain(dev, scorer, queries)
+    compact, rescan = phase_scorer(dev, scorer, queries, card)
     phase_profile(dev, lambda: scorer.score_sums(queries), "compact.")
     del scorer
     torch.cuda.empty_cache()
@@ -2424,20 +2660,27 @@ def main():
     for fast in ("compact", "dense"):
         phase_hybrid_methods(dev, fast)
 
-    compact["launches"], rows_auto = phase_pipeline(dev, files, "auto")
+    launches, rows_auto = phase_pipeline(dev, files, "auto")
+    compact["launches"] = launches["compact_finder"]
+    rescan["launches"] = launches["compact_rescan"]
     phase_fold(dev, *fold_constructs(rows_auto, queries), card)
     torch.cuda.empty_cache()
     phase_fold_pipeline(dev, files)
-    sharded_run, rows = phase_pipeline(dev, files, "sharded")
+    launches, rows = phase_pipeline(dev, files, "sharded")
+    sharded_run = launches["compact_finder"]
     same_verdicts(rows_auto, rows, "sharded")
     two_process = phase_two_process(dev, files, rows_auto, card)
-    onehot["launches"], rows = phase_pipeline(dev, files, "auto", onehot=True)
+    launches, rows = phase_pipeline(dev, files, "auto", onehot=True)
+    onehot["launches"] = launches["compact_finder_onehot"]
     same_verdicts(rows_auto, rows, "auto with the one-hot finder")
-    mxu["launches"], rows = phase_pipeline(dev, files, "exact")
+    launches, rows = phase_pipeline(dev, files, "exact")
+    mxu["launches"] = launches["mxu_finder"]
     same_verdicts(rows_auto, rows, "exact")
-    dense_stats["launches"], rows = phase_pipeline(dev, files, "dense")
+    launches, rows = phase_pipeline(dev, files, "dense")
+    dense_stats["launches"] = launches["dense_scan"]
     same_verdicts(rows_auto, rows, "dense")
-    scan_stats["launches"], rows = phase_pipeline(dev, files, "pallas")
+    launches, rows = phase_pipeline(dev, files, "pallas")
+    scan_stats["launches"] = launches["bucket_scan"]
     same_verdicts(rows_auto, rows, "pallas")
     phase_score_offtargets(dev, index, queries, files)
     log(f"all phases passed in {time.time() - t0:.1f} s")
@@ -2474,7 +2717,11 @@ def main():
          "replaces": "crackling_tpu/ops/issl_pallas.py:62",
          "max_abs_err": fullscan_err["bucket_scan"][0],
          "max_rel_err": fullscan_err["bucket_scan"][1],
-         "library_ms": None, **scan_stats}]})
+         "library_ms": None, **scan_stats},
+        {"name": "compact_rescan", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/compact_rescan.cu",
+         "replaces": "crackling_tpu/ops/issl_compact.py:1016",
+         "max_abs_err": rescan_err, "library_ms": None, **rescan}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

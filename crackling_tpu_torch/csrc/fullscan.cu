@@ -15,7 +15,9 @@
 //
 // The hit test is a distance screen on the tensor cores, as in
 // csrc/compact_finder.cu (the helpers and the bucket loop, stream_bucket,
-// are csrc/mma_screen.cuh, shared with csrc/mxu_finder.cu): every
+// are csrc/mma_screen.cuh, shared with csrc/mxu_finder.cu; the per-hit
+// terms, hit_terms, are csrc/pair_terms.cuh, shared with
+// csrc/compact_rescan.cu): every
 // (entry, query) pair's distance is an int8 product (mma.sync m16n8k32) of
 // the entry's one-hot row, built in registers from its packed word, by the
 // query's weight column (1 at the lanes of the bases the query does not
@@ -76,53 +78,19 @@
 #include <stdint.h>
 
 #include "mma_screen.cuh"
+#include "pair_terms.cuh"
 
 namespace {
 
 using mma_screen::exact_hit;
 using mma_screen::kFull;
 using mma_screen::stream_bucket_nt;
+using pair_terms::hit_terms;
+using pair_terms::kPenalties;
 
 constexpr int kThreads = mma_screen::kStreamWarps * 32;
 constexpr int kSlots = 64;            // queries per block (one group)
 constexpr int kMaxZ = 64;             // the bucket scan's grid depth
-constexpr int kPenalties = 20 * 16;   // CFD position penalties
-
-__device__ __forceinline__ uint32_t compress_even_bits(uint32_t x) {
-  x &= 0x55555555u;
-  x = (x | (x >> 1)) & 0x33333333u;
-  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
-  x = (x | (x >> 4)) & 0x00FF00FFu;
-  return (x | (x >> 8)) & 0x0000FFFFu;
-}
-
-// The f32 terms of one hit, given the collapsed mismatch words (cl: positions
-// 0-15 in the even bits, ch: positions 16-19): MIT from the dense table by the
-// 20-bit mask, CFD = pam x pen[p][q_p << 2 | (o_p ^ 3)] over the mismatched
-// positions p in ascending order, exactly 1.0 at distance 0.
-__device__ __forceinline__ void hit_terms(uint32_t cl, uint32_t ch,
-                                          uint32_t q_lo, uint32_t q_hi,
-                                          uint32_t e_lo, uint32_t e_hi,
-                                          const float* __restrict__ mit_tab,
-                                          const float* pen, float pam,
-                                          float& mit, float& cfd) {
-  const uint32_t m20 = compress_even_bits(cl) | (compress_even_bits(ch) << 16);
-  mit = __ldg(mit_tab + m20);
-  if (m20 == 0u) {
-    cfd = 1.0f;
-    return;
-  }
-  float c = pam;
-  for (uint32_t m = m20; m != 0u; m &= m - 1u) {
-    const int p = __ffs(m) - 1;
-    const int sh = 2 * (p & 15);
-    const uint32_t qc = ((p < 16 ? q_lo : q_hi) >> sh) & 3u;
-    const uint32_t oc = ((p < 16 ? e_lo : e_hi) >> sh) & 3u;
-    c = __fmul_rn(c, pen[p * 16 + ((qc << 2) | (oc ^ 3u))]);
-  }
-  cfd = c;
-}
-
 // The bucket scan's exact hit test of one pair from its packed words: at
 // most max_dist of the 20 positions mismatch, and no earlier slice has all
 // its raw XOR bits 0 (the width divides 32, so no slice straddles the two
@@ -141,11 +109,6 @@ __device__ __forceinline__ bool exact_hit_raw(unsigned long long e,
     if ((((sh < 32 ? xl : xh) >> (sh & 31)) & wmask) == 0u) return false;
   }
   return true;
-}
-
-__device__ __forceinline__ void load_penalties(float* pen,
-                                               const float* __restrict__ g) {
-  for (int k = threadIdx.x; k < kPenalties; k += kThreads) pen[k] = g[k];
 }
 
 // What every warp of a block reads while it streams its bucket.
@@ -265,7 +228,7 @@ dense_scan_kernel(const unsigned long long* __restrict__ entries,
   const long long sb = (long long)s * B + blockIdx.y;
   const int j0 = blockIdx.x * kSlots;
   const int slots = min(kSlots, qb - j0);
-  load_penalties(pen, pen_g);
+  pair_terms::load_penalties<kThreads>(pen, pen_g);
   Scan k = scan_of(entries, occ, epad, boff, blen, sb, s, max_dist, mit_tab,
                    pen, pam, slot_of, qcol, sums);
 
@@ -328,7 +291,7 @@ bucket_scan_kernel(const unsigned long long* __restrict__ entries,
   const int nq = qoff[(long long)s * (B + 1) + blockIdx.x + 1] - q0;
   const int ngroups = (nq + kSlots - 1) / kSlots;
   if ((int)blockIdx.z >= ngroups) return;    // uniform over the block
-  load_penalties(pen, pen_g);
+  pair_terms::load_penalties<kThreads>(pen, pen_g);
   Scan k = scan_of(entries, occ, epad, boff, blen, sb, s, max_dist, mit_tab,
                    pen, pam, slot_of, qcol, sums);
   k.width = width;

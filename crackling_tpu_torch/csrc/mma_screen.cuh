@@ -1,7 +1,8 @@
 // The int8 tensor-core distance screen of the kernels that read the packed
 // lists: csrc/compact_finder.cu (the packed compact finder),
 // csrc/fullscan.cu (the full-scan scorers) and csrc/mxu_finder.cu (the
-// exact engine's neighbour finder).
+// exact engine's neighbour finder); csrc/compact_rescan.cu takes only its
+// exact hit test (exact_hit).
 //
 // A pair's distance is the number of positions at which entry and query
 // differ. Each position's base, one-hot over four int8 lanes, makes an

@@ -10,7 +10,7 @@ the pair is a **hit** iff
 
 Each hit adds ``occ x MIT local score`` and ``occ x CFD score`` to the
 query's sums for slice ``s``: the f32 terms of the port's
-``issl_compact.pair_scores`` (MIT from the dense table by the 20-bit
+``compact_rescan.pair_scores`` (MIT from the dense table by the 20-bit
 mismatch mask, 0 at distance 0; CFD the PAM penalty times the position
 penalties in ascending order, exactly 1.0 at distance 0), summed in f64.
 Two query layouts, one function:
@@ -52,7 +52,7 @@ from .bits import (SIG40, collapse_pairs, earlier_slice_clean,
 from .compact_finder import (MMA_K, bucket_entry_pairs, mma_columns,
                              mma_rows, onehot_lanes, signed_columns,
                              slot_entry_pairs, weight_lanes)
-from .issl_compact import ScoreTables, pair_scores
+from .compact_rescan import ScoreTables, check_tensors, pair_scores
 from .kernel_build import KernelLibrary
 
 
@@ -77,28 +77,6 @@ def _bind(lib):
 
 
 KERNEL = KernelLibrary("fullscan.cu", _bind)
-
-
-def _check(named, max_dist, tabs):
-    """Device, type, rank and contiguity of each (name, tensor, dtype,
-    ndim); the index and the query page on one device."""
-    dev = named[0][1].device
-    for name, t, dt, nd in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, entries on {dev}")
-        if t.dtype != dt or t.dim() != nd:
-            raise ValueError(f"{name} must be a {nd}-d {dt} tensor, got "
-                             f"{t.dim()}-d {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if tabs.mit.shape != (1 << 20,) or tabs.pen.shape != (20, 16) \
-            or tabs.mit.device != dev or tabs.pen.device != dev \
-            or tabs.mit.dtype != torch.float32 \
-            or tabs.pen.dtype != torch.float32:
-        raise ValueError("tables must be the (2^20,) MIT and (20, 16) CFD "
-                         "f32 tables on the index's device")
-    if not 0 <= max_dist <= 20:
-        raise ValueError("max_dist must lie in [0, 20]")
 
 
 def _index_shapes(entries, occ, boff, blen):
@@ -139,7 +117,7 @@ def dense_scan(entries: torch.Tensor, occ: torch.Tensor, boff: torch.Tensor,
     (mit, cfd), each (S, B, qb) f64, 0 at padding slots. A CUDA tensor
     launches the kernel (counted in ``dense_scan.launches``); a CPU tensor
     runs :func:`dense_scan_plain`."""
-    _check((("entries", entries, torch.int64, 2),
+    check_tensors((("entries", entries, torch.int64, 2),
             ("occ", occ, torch.int32, 2), ("boff", boff, torch.int64, 2),
             ("blen", blen, torch.int32, 2), ("q_sig", q_sig, torch.int64, 1),
             ("qsp", qsp, torch.int32, 3)), max_dist, tabs)
@@ -227,7 +205,7 @@ def bucket_scan(entries: torch.Tensor, occ: torch.Tensor,
     Returns (mit, cfd), each (S, n) f64. A CUDA tensor launches the
     kernel (counted in ``bucket_scan.launches``); a CPU tensor runs
     :func:`bucket_scan_plain`."""
-    _check((("entries", entries, torch.int64, 2),
+    check_tensors((("entries", entries, torch.int64, 2),
             ("occ", occ, torch.int32, 2), ("boff", boff, torch.int64, 2),
             ("blen", blen, torch.int32, 2), ("q_sig", q_sig, torch.int64, 1),
             ("qoff", qoff, torch.int32, 2),

@@ -13,9 +13,10 @@ the page (every compaction is capped, as in the JAX program):
    dedup), plus superchunk cells on deep indexes and bucket totals.
 3. **Moment-tree decode** (:func:`decode_score`): 1-2 hit cells resolve
    pointwise from their min/max ranks at every tree level (slot total ->
-   superchunk -> chunk); only >=3-hit chunks are **rescanned**, in
-   bounded row blocks, with the hit predicate and per-pair MIT/CFD
-   evaluated elementwise and row-summed.
+   superchunk -> chunk); only >=3-hit chunks are **rescanned**
+   (:func:`~.compact_rescan.compact_rescan`, the hand-written Hopper
+   kernel on CUDA, one launch for the page's whole list), with the hit
+   predicate and per-pair MIT/CFD evaluated and row-summed.
 4. Per-query MIT/CFD sums (f64) plus a 7-int header of compaction
    populations return to the host, which checks them against the caps
    the page ran with (grow-and-retry or split on overflow).
@@ -41,10 +42,10 @@ from torch.profiler import record_function
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex
 from ..pipeline.logger import printer
-from .bits import (SIG40, collapse_pairs, compress_even_bits,
-                   earlier_slice_clean, popcount)
 from .compact_finder import FinderOut, compact_finder
 from .compact_onehot import LANES, compact_finder_onehot, onehot_planes
+from .compact_rescan import (RESCAN_BLOCK, RescanRows, ScoreTables,
+                             compact_rescan, pair_scores)
 from .hybrid import plan_query_occupancy
 from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                      cfd_pos_penalties, mit_dense_table)
@@ -155,12 +156,6 @@ def aligned_lists(index: IsslIndex, device, tail: int = 0) -> AlignedLists:
         torch.as_tensor(arrs["bucket_lens"], device=device))
 
 
-class ScoreTables(NamedTuple):
-    mit: torch.Tensor     # (2^20,) f32 local MIT score by 20-bit mask
-    pen: torch.Tensor     # (20, 16) f32 CFD position penalties
-    pam: float            # CFD PAM (NGG) penalty
-
-
 def score_tables(max_dist: int, device) -> ScoreTables:
     return ScoreTables(
         torch.as_tensor(mit_dense_table(20, max_dist).astype(np.float32),
@@ -170,40 +165,23 @@ def score_tables(max_dist: int, device) -> ScoreTables:
         float(cfd_pam_penalties()[CFD_PAM_NGG_INDEX]))
 
 
-def pair_scores(q: torch.Tensor, e: torch.Tensor, tabs: ScoreTables):
-    """Per-(query, entry) terms for rows of one query each: q (R,) and
-    e (R, W) int64 signatures -> (c40, mit, cfd), each (R, W): the
-    collapsed 40-bit mismatch mask, the MIT local score and the CFD
-    product (1.0 at distance 0), both f32 and not yet x occurrences."""
-    dev = q.device
-    c40 = collapse_pairs((e ^ q[:, None]) & SIG40)
-    mit = tabs.mit[compress_even_bits(c40)]
-    # per-row (20, 4) factor table, 1.0 at the query's own base, so each
-    # position costs one gather by the entry's base
-    p = torch.arange(20, device=dev)
-    qcode = (q[:, None] >> (2 * p)) & 3                          # (R, 20)
-    b4 = torch.arange(4, device=dev)
-    rpen = tabs.pen[p[None, :, None], (qcode[:, :, None] << 2) | (b4 ^ 3)]
-    rpen = torch.where(b4 == qcode[:, :, None], 1.0, rpen)      # (R, 20, 4)
-    cfd = torch.full(e.shape, tabs.pam, dtype=torch.float32, device=dev)
-    for pos in range(20):
-        cfd = cfd * torch.gather(rpen[:, pos, :], 1, (e >> (2 * pos)) & 3)
-    cfd = torch.where(c40 == 0, 1.0, cfd)
-    return c40, mit, cfd
+class Decoded(NamedTuple):
+    """Steps 1-2 of the decode and the rescan list of step 3."""
+    pops: list              # () int64 populations n_single .. n_rescan
+    mit_sums: torch.Tensor  # (n + 1,) f64: the 1-2 hit cells' terms
+    cfd_sums: torch.Tensor  # (n + 1,) f64
+    rows: RescanRows        # the >=3-hit chunks, capped at caps[5]
 
 
-def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
-                 boff: torch.Tensor, blen: torch.Tensor,
-                 entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
-                 superchunk: int, max_dist: int, caps: tuple,
-                 tabs: ScoreTables, rescan_block: int, scan_width: int,
-                 trim: bool):
-    """Moment-tree decode and rescan of one page's finder output.
-
-    Returns (header, mit_sums, cfd_sums): header is the (7,) int64
-    compaction populations (n_single, n_mslot, n_scell, n_sresc,
-    n_mcell, n_rescan, 0), sums are (n,) f64. Populations above their
-    cap mean that step truncated and the sums are incomplete."""
+def decode_tree(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
+                boff: torch.Tensor, blen: torch.Tensor,
+                entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
+                superchunk: int, caps: tuple, tabs: ScoreTables,
+                trim: bool) -> Decoded:
+    """Moment-tree decode of one page's finder output, down to the rows
+    step 3 rescans: the 1-2 hit cells scored into the sums, and the
+    >=3-hit chunks compacted into :class:`RescanRows` with cheap
+    cap-sized torch ops (no host sync)."""
     dev = q_sig.device
     n = q_sig.numel()
     S, B, C, qb = fo.cnt.shape
@@ -320,37 +298,47 @@ def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
         add_direct(mslot, torch.where(vz, mcnt, 0), min_f[cidx],
                    max_f[cidx], vz)
 
-    # 3) >=3-hit chunks: rescan their entries and score every pair in
-    # one elementwise pass + row sum, in blocks of <= rescan_block chunks
-    # so the temporaries stay O(rescan_block x scan_width)
+    # 3) >=3-hit chunks: the rescan list, one row per chunk
     with record_function("compact.decode.rescan"):
         c2 = vz & (mcnt >= 3)
         n2c = c2.sum()
         ridx = compact_indices(c2, capr, trim)
-        cols = torch.arange(scan_width, device=dev)
-        for k in range(0, ridx.numel(), rescan_block):
-            rbx = ridx[k:k + rescan_block]
-            ri = rbx.clamp(min=0)
-            rslot = mslot[ri]
-            rchk = mchk[ri]
-            sb = rslot // qb
-            rs = sb // B
-            hq = q_of(rslot)
-            rq_ok = (rbx >= 0) & (hq < n)
-            first = rchk * chunk
-            pos = (rs * epad + boff_f[sb] + first)[:, None] + cols[None, :]
-            c40, mit, cfd = pair_scores(q_sig[hq.clamp(max=n - 1)],
-                                        ent_f[pos], tabs)
-            ok = ((popcount(c40) <= max_dist)
-                  & ~earlier_slice_clean(c40, rs[:, None])
-                  & (cols[None, :] < (blen_f[sb] - first)[:, None])
-                  & rq_ok[:, None])
-            add(torch.where(rq_ok, hq, n), mit, cfd,
-                torch.where(ok, occ_f[pos].float(), 0.0))
+        ri = ridx.clamp(min=0)
+        rslot = mslot[ri]
+        first = mchk[ri] * chunk
+        sb = rslot // qb
+        rs = sb // B
+        hq = q_of(rslot)
+        rows = RescanRows(ridx, q_sig[hq.clamp(max=n - 1)], hq,
+                          rs * epad + boff_f[sb] + first,
+                          blen_f[sb] - first, rs)
+    return Decoded([n1, nm, n_sc, n_sr, nc, n2c], mit_sums, cfd_sums, rows)
 
-    header = torch.stack([n1, nm, n_sc, n_sr, nc, n2c,
-                          torch.zeros((), dtype=torch.int64, device=dev)])
-    return header, mit_sums[:n], cfd_sums[:n]
+
+def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
+                 boff: torch.Tensor, blen: torch.Tensor,
+                 entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
+                 superchunk: int, max_dist: int, caps: tuple,
+                 tabs: ScoreTables, scan_width: int, trim: bool,
+                 rescan_block: int = RESCAN_BLOCK):
+    """Moment-tree decode and rescan of one page's finder output.
+
+    Returns (header, mit_sums, cfd_sums): header is the (7,) int64
+    compaction populations (n_single, n_mslot, n_scell, n_sresc,
+    n_mcell, n_rescan, 0), sums are (n,) f64. Populations above their
+    cap mean that step truncated and the sums are incomplete. Step 3 is
+    :func:`~.compact_rescan.compact_rescan` over :func:`decode_tree`'s
+    rows (``rescan_block`` bounds the plain version's temporaries)."""
+    n = q_sig.numel()
+    d = decode_tree(q_sig, qsp, fo, boff, blen, entries, occ, chunk=chunk,
+                    superchunk=superchunk, caps=caps, tabs=tabs, trim=trim)
+    with record_function("compact.decode.rescan"):
+        compact_rescan(d.rows, entries.reshape(-1), occ.reshape(-1), tabs,
+                       d.mit_sums, d.cfd_sums, n=n, scan_width=scan_width,
+                       max_dist=max_dist, rescan_block=rescan_block)
+    header = torch.stack(d.pops + [torch.zeros((), dtype=torch.int64,
+                                               device=q_sig.device)])
+    return header, d.mit_sums[:n], d.cfd_sums[:n]
 
 
 class CompactIsslScorer:
@@ -408,9 +396,10 @@ class CompactIsslScorer:
         self._nchmax = max(1, -(-maxblen // self.chunk))
         self.superchunk = (auto_superchunk(self._nchmax)
                            if superchunk is None else int(superchunk))
-        # rescan block: bounds the gathered temporaries at
-        # O(rescan_block x chunk) pairs however large cap_rescan is
-        self.rescan_block = (8192 if rescan_block is None
+        # the plain rescan's (CPU) row block: bounds its gathered
+        # temporaries at O(rescan_block x chunk) pairs however large
+        # cap_rescan is; the kernel takes the whole list at once
+        self.rescan_block = (RESCAN_BLOCK if rescan_block is None
                              else int(rescan_block))
         # rescan width: a chunk, or less when every bucket is shorter
         # (entries past a bucket's end never hit)
@@ -501,6 +490,14 @@ class CompactIsslScorer:
             superchunk=self.superchunk, max_dist=self.max_dist,
             caps=self._caps(), tabs=self.tables,
             rescan_block=self.rescan_block, scan_width=self._scan_width,
+            trim=self.device.type == "cpu")
+
+    def decode_tree(self, q_sig, qsp, fo: FinderOut) -> Decoded:
+        """The decode down to its rescan list (:func:`decode_tree`)."""
+        return decode_tree(
+            q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
+            self.entries, self.occ, chunk=self.chunk,
+            superchunk=self.superchunk, caps=self._caps(), tabs=self.tables,
             trim=self.device.type == "cpu")
 
     def run_page(self, page: np.ndarray, qb: int):
