@@ -6,9 +6,10 @@
 Needs one CUDA GPU, ``nvcc`` (PATH or /usr/local/cuda/bin) and ``g++``.
 Phases, each fatal on failure:
 
-1. build the five kernel libraries (nvcc, sm_90a: the compact finder,
+1. build the six kernel libraries (nvcc, sm_90a: the compact finder,
    the one-hot compact finder, the neighbour finder, the full-scan
-   scorers and the compact rescan) and the native host library (g++)
+   scorers, the compact rescan and the compact decode) and the native
+   host library (g++)
    from the package's sources, in parallel; print the card and each
    kernel's ``ptxas`` registers, shared memory and spills by kernel name;
 2. hold the compact finder kernel (int8 tensor-core distance over one-hot
@@ -19,10 +20,12 @@ Phases, each fatal on failure:
    (its own plan, and one whose qb is not a multiple of 8);
 3. score one 65,536-query page at the 27 Mbp operating point (synthetic
    genome, seed 20260816, cached under .cache/chip_smoke/) with the
-   compact engine: time the finder, the decode and the rescan alone (on
-   the page's own rescan list, at the tuned caps) with CUDA events, the
-   plain rescan and the page with the host clock; the rescan's bound with
-   its operations and bytes terms; check a 2,048-query sample against the
+   compact engine: time the finder, the decode, its steps 1-2 alone (the
+   decode kernel) and the rescan alone (on the page's own rescan list, at
+   the tuned caps) with CUDA events, the plain decode steps, the plain
+   rescan and the page with the host clock; the decode kernel's and the
+   rescan's bounds with their operations and bytes terms; check a
+   2,048-query sample against the
    exact host scorer (sums within rtol 1e-4, hybrid verdicts identical
    for ``and``); then profile one warm page (device busy share, per-span
    device time);
@@ -40,9 +43,9 @@ Phases, each fatal on failure:
     SM, the page wall time and guides/s with each finder, the planes'
     bytes and build time;
 3d. the 65,536-query page with the sharded compact engine at 1, 2 and 4
-    site-range shards listed on the one card: the compact finder and the
-    compact rescan must each launch shards x pages times, with no plain
-    version, and the sums must
+    site-range shards listed on the one card: the compact finder, the
+    compact decode and the compact rescan must each launch shards x pages
+    times, with no plain version, and the sums must
     lie within rtol 1e-9 of the one-shard page's; page wall (host clock)
     and each shard's finder and decode (CUDA events) timed; at 4 shards a
     2,048-query sample within rtol 1e-4 of the exact sums, hybrid ``and``
@@ -53,6 +56,15 @@ Phases, each fatal on failure:
     row, with two padding rows and a row of query n (max-distance 4, 0
     and 2), the skewed index's own rescan list (superchunk level on) and
     the 65,536-query page's; each prints its rows, live rows and errors;
+3f. (run before 3) hold the compact decode kernel (steps 1-2) against its
+    plain version on the same finder cells: the small index at
+    max-distance 4, 0 and 2, the skewed index's page (superchunk level on)
+    and the 65,536-query page, each at the caps the auto-tuning sets from
+    it: populations equal, sums within rtol 1e-12 / atol 1e-9, the live
+    rescan rows equal as a set; then with each level's cap one below its
+    population (the superchunk levels on the skewed page) both must flag
+    the page at that level; each prints its caps, populations, live rows
+    and errors;
 4. hold the neighbour finder kernel (the MXU engine's, an int8
    tensor-core distance screen: K = 64 at slice width 8, 96 at the
    others) against its plain version, cell for cell (exact), on the small
@@ -105,7 +117,10 @@ Phases, each fatal on failure:
     six times, every kernel's launch counter and plain-call counter
     reset just before each run and read just after: ``engine = auto``
     (the compact finder must have launched, and in every run the compact
-    rescan as often as a compact finder), ``auto`` with
+    decode and the compact rescan as often as a compact finder; the
+    ``auto`` run also times its off-target stage's parts from here: index
+    load, scorer build, the cap-tuning page, later pages, the re-scorer's
+    build and its re-scores), ``auto`` with
     ``CRACKLING_TPU_COMPACT_ONEHOT=1`` (the one-hot finder, and not the
     packed one), ``sharded`` in one process (the compact finder), then
     ``exact`` (the neighbour finder), ``dense`` (``dense_scan``) and
@@ -125,7 +140,8 @@ Phases, each fatal on failure:
     wall time and guides/s, the native fold's wall time; then a profile
     of one chunk (its ``mfe.`` spans: precompute, DP, the DP's interior
     window). Then ``Crackling -c`` with ``engine = auto`` and ``[tpu]
-    rnafold-backend = tpu``: the compact finder must launch with no plain
+    rnafold-backend = tpu``: the compact finder must launch, the compact
+    decode and rescan as often, with no plain
     version, its CSV must be byte-equal to the ``auto`` run's (which folds
     with the native engine), and its secondary-structure stage time is
     printed beside ``auto``'s;
@@ -133,8 +149,8 @@ Phases, each fatal on failure:
     one card (``process-count = 2``, a free localhost port,
     CRACKLING_PROCESS_ID 0 and 1, an output directory each): each prints
     its kernel launch counts on a line of its own and must have launched
-    the compact finder and as often the compact rescan, with no plain
-    version; both must exit 0, their
+    the compact finder and as often the compact decode and the compact
+    rescan, with no plain version; both must exit 0, their
     CSVs must be byte-equal and their ``passedOffTargetScore`` the
     ``auto`` run's;
 12. ``scoreOfftargets`` through its CLI entry point on the GPU against a
@@ -153,6 +169,7 @@ work on an 8-core H100 host); ``CHIP_SMOKE_GENOME_MBP`` /
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -231,6 +248,20 @@ FULLSCAN_RTOL, FULLSCAN_ATOL = 1e-12, 1e-9
 # of every row of the list and the two f64 sums of every query it adds to
 RESCAN_OPS_PER_PAIR = 20
 RESCAN_DESCRIPTOR_BYTES = 6 * 8
+# the compact decode's bound (steps 1-2): bytes, each input read once and
+# each output written once: the bucket-total count of every slot, the plan
+# entry of every slot with a hit, the min rank of every scored 1-2-hit cell
+# and its max rank at 2 hits, the count of every cell the tree pass
+# visits, the 8-B entry and 4-B occurrence of every distinct hit entry and
+# the 4-B MIT table entry of every distinct hit mask, the 8-B signature and
+# two f64 sums of every query it scores, the whole (6, caps[5]) row block
+# written, and the 4-B bucket length of every >=3-hit slot (its cells are
+# counted only up to that length: a cell past it holds no hit); the
+# kernel's own list of >=3-hit slots is scratch of its two-pass design and
+# is not counted; operations: ~8 32-bit
+# operations per slot (the count tests, two ballots, the list offset) and
+# per scored hit the full-scan scorers' ~64
+DECODE_SLOT_OPS = 8
 # the scan-style engine's page (its default query_page)
 SCAN_PAGE = 8192
 # the MXU engine's page (its default query_page)
@@ -294,6 +325,29 @@ def timed_ms(fn, reps, dev):
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def queued_ms(fn, reps, dev):
+    """Mean device ms per call of ``fn`` with no host gap between calls:
+    the stream is held by a ~20 ms spin kernel while the host enqueues
+    all ``reps`` calls, so CUDA events time only the device's work (a
+    call whose host side is slower than its device work is launch-bound,
+    and ``timed_ms`` times that instead)."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return timed_ms(fn, reps, dev)
+    fn()
+    sync(dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7 * reps / 10))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def host_walls(fn, dev, reps=3):
@@ -459,7 +513,7 @@ def phase_build():
     from crackling_tpu_torch.ops.kernel_build import build_library
 
     sources = ("compact_finder.cu", "compact_onehot.cu", "mxu_finder.cu",
-               "fullscan.cu", "compact_rescan.cu")
+               "fullscan.cu", "compact_rescan.cu", "compact_decode.cu")
     with ThreadPoolExecutor(len(sources) + 1) as ex:
         kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
@@ -716,6 +770,203 @@ def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
     return max(errs)
 
 
+def decode_args(scorer, q, qsp, fo, caps):
+    """The decode's arguments for the scorer's lists at ``caps``."""
+    return ((q, qsp, fo, scorer.bucket_offsets, scorer.bucket_lens,
+             scorer.entries, scorer.occ),
+            dict(chunk=scorer.chunk, superchunk=scorer.superchunk,
+                 caps=tuple(caps), tabs=scorer.tables, trim=False))
+
+
+def live_rows(d):
+    """The live rows of a decode as sorted (hq, start, live, s, q)."""
+    live = d.rows.ridx >= 0
+    return sorted(zip(*(t[live].tolist() for t in (
+        d.rows.hq, d.rows.start, d.rows.live, d.rows.s, d.rows.q))))
+
+
+def compare_decode(scorer, q, qsp, fo, caps):
+    """Kernel vs plain version of the decode's steps 1-2 on the same cells
+    at ``caps``. Within the caps the populations must be equal, the sums
+    within rtol 1e-12 / atol 1e-9 (the same f32 terms summed in f64 in
+    another order) and the live rows equal as a set; over a cap both must
+    flag it, with equal populations up to the first over its cap. Returns
+    (populations, max abs err, max rel err, live rows, the first level over
+    its cap or None)."""
+    import torch
+
+    from crackling_tpu_torch.ops.compact_decode import (compact_decode,
+                                                        compact_decode_plain)
+
+    args, kw = decode_args(scorer, q, qsp, fo, caps)
+    got = compact_decode(*args, **kw)
+    want = compact_decode_plain(*args, **kw)
+    sync(q.device)
+    gp, wp = got.pops.tolist(), want.pops.tolist()
+    over = [p > c for p, c in zip(wp, caps)]
+    if any(over):
+        lvl = over.index(True)
+        if gp[lvl] <= caps[lvl] or gp[:lvl + 1] != wp[:lvl + 1]:
+            fail(f"the decode kernel's populations {gp} do not flag cap "
+                 f"{lvl} ({caps[lvl]}) as the plain version's {wp} do")
+        return wp, 0.0, 0.0, len(live_rows(got)), lvl
+    if gp != wp:
+        fail(f"decode kernel populations {gp} differ from the plain "
+             f"version's {wp}")
+    errs = []
+    for name, g, w in (("mit", got.mit_sums, want.mit_sums),
+                       ("cfd", got.cfd_sums, want.cfd_sums)):
+        if not torch.allclose(g, w, rtol=FULLSCAN_RTOL, atol=FULLSCAN_ATOL):
+            fail(f"decode kernel {name} sums disagree with its plain "
+                 f"version (max abs err {float((g - w).abs().max()):.3e})")
+        errs.append((float((g - w).abs().max()),
+                     float(((g - w).abs() / w.abs().clamp(min=1e-30))
+                           .max())))
+    rows = live_rows(got)
+    if rows != live_rows(want):
+        fail("the decode kernel's rescan rows differ from the plain "
+             "version's as a set")
+    return (wp, max(e[0] for e in errs), max(e[1] for e in errs),
+            len(rows), None)
+
+
+def tuned_caps(scorer, q, qsp, fo):
+    """The caps the scorer's auto-tuning would set from this page: ~1.25x
+    each population of a decode at the generous first-page caps."""
+    from crackling_tpu_torch.ops.compact_decode import compact_decode_plain
+    from crackling_tpu_torch.ops.issl_compact import (_quant_cap,
+                                                      normalize_caps)
+
+    args, kw = decode_args(scorer, q, qsp, fo, normalize_caps(None, 1 << 17))
+    pops = compact_decode_plain(*args, **kw).pops.tolist()
+    return tuple(_quant_cap(p) for p in pops + [0])
+
+
+def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
+    """Phase 3f: the decode kernel (steps 1-2) against its plain version on
+    the same finder cells: the small index at max-distance 4, 0 and 2, the
+    skewed index's page (superchunk level on) and the 65,536-query page,
+    each at the caps the auto-tuning sets from it; then each level's cap
+    one below its population, the superchunk levels on the skewed page,
+    the others on the 65,536-query page: both must flag it. Returns the
+    largest absolute error."""
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+
+    errs = []
+
+    def check(what, sc, queries, level=None):
+        q, qsp = finder_inputs(sc, queries)
+        fo = sc.finder(q, qsp)
+        caps = tuned_caps(sc, q, qsp, fo)
+        pops, *_ = compare_decode(sc, q, qsp, fo, caps)
+        if level is not None:
+            if not pops[level]:
+                fail(f"{what} has no population {level} to overflow")
+            caps = list(caps)
+            caps[level] = pops[level] - 1
+        pops, abs_err, rel_err, rows, flagged = compare_decode(
+            sc, q, qsp, fo, caps)
+        if level is not None and flagged != level:
+            fail(f"{what}: cap {level} below its population was not the "
+                 f"first flagged ({flagged})")
+        errs.append(abs_err)
+        emit({"phase": "decode_kernel_vs_plain", "input": what,
+              "max_dist": sc.max_dist, "superchunk": sc.superchunk,
+              "caps": list(caps), "populations": pops, "live_rows": rows,
+              "flagged_level": flagged, "max_abs_err": abs_err,
+              "max_rel_err": rel_err})
+        return pops
+
+    index, queries = small_world()
+    for max_dist in (4, 0, 2):
+        sc = CompactIsslScorer(index, max_dist=max_dist, chunk=1024,
+                               device=dev)
+        check("small", sc, queries)
+    index, queries = skewed_world()
+    sk = CompactIsslScorer(index, max_dist=4, chunk=1024, device=dev)
+    if sk.superchunk <= 0:
+        fail(f"skewed index did not turn the superchunk level on "
+             f"(nchmax {sk._nchmax})")
+    check("skewed", sk, queries)
+    pops = check("bench page", bench_scorer, bench_queries)
+    if not all(pops[k] for k in (0, 1, 4, 5)):
+        fail(f"the bench page lacks a population to overflow: {pops}")
+    for level in range(6):
+        if level in (2, 3):
+            check("skewed, over a cap", sk, queries, level)
+        else:
+            check("bench page, over a cap", bench_scorer, bench_queries,
+                  level)
+    return max(errs)
+
+
+def decode_bound_ms(scorer, q, qsp, fo, caps):
+    """Least time for the decode's steps 1-2 on this page: the larger of
+    its bytes (DECODE_SLOT_OPS' comment) over HBM bandwidth and its 32-bit
+    operations over the ALU peak. Returns (ms, bound by, scored cells,
+    hits, terms in ms)."""
+    import torch
+
+    from crackling_tpu_torch.ops.bits import (SIG40, collapse_pairs,
+                                              compress_even_bits)
+
+    n = q.numel()
+    S, B, C, qb = fo.cnt.shape
+    nch, nsc, sup = fo.nchmax, fo.nsc, scorer.superchunk
+    cnt = fo.cnt
+    multi = (cnt[:, :, C - 1, :] >= 3)[:, :, None, :]
+
+    def one_two(c):
+        return (c == 1) | (c == 2)
+
+    # the live chunks (and superchunks) of each bucket: cells past them
+    # hold no hit, so the function need not read them
+    nlive = (scorer.bucket_lens.long() + scorer.chunk - 1) // scorer.chunk
+    live_ch = (torch.arange(nch, device=q.device)[None, None, :]
+               < nlive[:, :, None])[..., None]
+    visited = torch.zeros_like(cnt, dtype=torch.bool)
+    if sup:
+        live_sc = (torch.arange(nsc, device=q.device)[None, None, :] * sup
+                   < nlive[:, :, None])[..., None]
+        visited[:, :, nch:nch + nsc] = multi & live_sc
+        big = visited[:, :, nch:nch + nsc] & (cnt[:, :, nch:nch + nsc] >= 3)
+        owner = torch.arange(nch, device=q.device) // sup
+        visited[:, :, :nch] = big[:, :, owner] & live_ch
+    else:
+        visited[:, :, :nch] = multi & live_ch
+    scored = visited & one_two(cnt)
+    scored[:, :, C - 1] = one_two(cnt[:, :, C - 1])
+    s_i, b_i, c_i, j_i = torch.nonzero(scored, as_tuple=True)
+    two = cnt[s_i, b_i, c_i, j_i] == 2
+    hq = qsp[s_i, b_i, j_i].long()
+    keep = torch.cat([hq, hq[two]]) < n
+    sl = torch.cat([s_i, s_i[two]])
+    pos = (sl * scorer.entries.shape[1]
+           + scorer.bucket_offsets[sl, torch.cat([b_i, b_i[two]])]
+           + torch.cat([fo.rmin[s_i, b_i, c_i, j_i],
+                        fo.rmax[s_i, b_i, c_i, j_i][two]]).long())[keep]
+    hq_hit = torch.cat([hq, hq[two]])[keep]
+    ent = scorer.entries.reshape(-1)[pos]
+    masks = compress_even_bits(collapse_pairs((ent ^ q[hq_hit]) & SIG40))
+    queries = int(torch.unique(hq_hit).numel())
+    live_slots = int((cnt[:, :, C - 1] > 0).sum())
+    nm = int(multi.sum())
+    nbytes = (S * B * qb * 4 + live_slots * 4
+              + int(scored.sum()) * 4 + int(two.sum()) * 4
+              + int(visited.sum()) * 4
+              + int(torch.unique(pos).numel()) * 12
+              + int(torch.unique(masks).numel()) * 4
+              + queries * (8 + 16) + caps[5] * RESCAN_DESCRIPTOR_BYTES
+              + nm * 4)
+    hits = int(pos.numel())
+    terms = {"operations": (S * B * qb * DECODE_SLOT_OPS
+                            + hits * FULLSCAN_HIT_OPS) / H100_ALU_OPS_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    return (terms[by] * 1e3, by, int(scored.sum()), hits,
+            {k: v * 1e3 for k, v in terms.items()})
+
+
 def rescan_bound_ms(scorer, rows, n):
     """Least time for the rescan's work on these rows: the larger of its
     32-bit operations (RESCAN_OPS_PER_PAIR per pair of a live row below its
@@ -799,12 +1050,31 @@ def phase_scorer(dev, scorer, queries, card):
     plain_ms = (time.perf_counter() - t) * 1e3
     bound_ms, bound_by, pairs, terms = finder_bound_ms(scorer, q, qsp, C)
 
+    # steps 1-2 alone (the decode kernel) at the tuned caps, its plain
+    # version on the card and its bound
+    from crackling_tpu_torch.ops.compact_decode import compact_decode_plain
+
+    decode_call_ms = timed_ms(lambda: scorer.decode_tree(q, qsp, fo), 10,
+                              dev)
+    decode_kernel_ms = queued_ms(lambda: scorer.decode_tree(q, qsp, fo), 10,
+                                 dev)
+    args, kw = decode_args(scorer, q, qsp, fo, scorer._caps())
+    sync(dev)
+    t = time.perf_counter()
+    compact_decode_plain(*args, **kw)
+    sync(dev)
+    decode_plain_ms = (time.perf_counter() - t) * 1e3
+    (decode_bound, decode_by, decode_cells, decode_hits,
+     decode_terms) = decode_bound_ms(scorer, q, qsp, fo, scorer._caps())
+
     # the rescan alone, on the page's own list at the tuned caps
     rows = scorer.decode_tree(q, qsp, fo).rows
     n = q.numel()
     sums = zero_sums(n, dev)
     opts = rescan_options(scorer, n)
     rescan_ms = timed_ms(lambda: compact_rescan(
+        rows, *rescan_lists(scorer), *sums, **opts), 10, dev)
+    rescan_queued_ms = queued_ms(lambda: compact_rescan(
         rows, *rescan_lists(scorer), *sums, **opts), 10, dev)
     sync(dev)
     t = time.perf_counter()
@@ -852,14 +1122,21 @@ def phase_scorer(dev, scorer, queries, card):
           "page_stats": list(scorer.page_stats[-1]),
           "caps": list(scorer._caps()), "tune_page_s": tune_s,
           "page_wall_s": walls, "plan_ms": plan_ms, "finder_ms": finder_ms,
-          "decode_ms": decode_ms, "finder_plain_ms": plain_ms,
+          "decode_ms": decode_ms, "decode_kernel_ms": decode_kernel_ms,
+          "decode_call_ms": decode_call_ms,
+          "decode_plain_ms": decode_plain_ms,
+          "decode_bound_ms": decode_bound, "decode_bound_by": decode_by,
+          "decode_bound_terms_ms": decode_terms,
+          "decode_scored_cells": decode_cells, "decode_hits": decode_hits,
+          "finder_plain_ms": plain_ms,
           "finder_bound_ms": bound_ms, "finder_bound_by": bound_by,
           "finder_bound_terms_ms": terms,
           "rescan_rows": rows.ridx.numel(),
           "rescan_live_rows": int(((rows.ridx >= 0) & (rows.hq < n)).sum()),
           "rescan_pairs": rescan_pairs, "rescan_hits": rescan_hits,
           "rescan_distinct_entries": rescan_entries,
-          "rescan_ms": rescan_ms, "rescan_plain_ms": rescan_plain_ms,
+          "rescan_ms": rescan_ms, "rescan_queued_ms": rescan_queued_ms,
+          "rescan_plain_ms": rescan_plain_ms,
           "rescan_bound_ms": rescan_bound, "rescan_bound_by": rescan_by,
           "rescan_bound_terms_ms": rescan_terms,
           "compact_guides_per_s": queries.shape[0] / page_s,
@@ -868,17 +1145,27 @@ def phase_scorer(dev, scorer, queries, card):
           "rescored": hyb.last_rescored,
           "sample_max_rel_err": rel_err})
     return (dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by="bytes" if bound_by == "bytes" else "operations"),
+                 **bound_label(bound_by)),
             dict(ms=rescan_ms, plain_ms=rescan_plain_ms,
-                 bound_ms=rescan_bound, bound_by=rescan_by))
+                 bound_ms=rescan_bound, **bound_label(rescan_by)),
+            dict(ms=decode_kernel_ms, plain_ms=decode_plain_ms,
+                 bound_ms=decode_bound, **bound_label(decode_by)))
+
+
+def bound_label(term):
+    """The kernels line's labels of a bound: ``bound_by`` in the line's two
+    words (a tensor-core bound counts operations, at the int8 rate) and
+    ``bound_term``, the phase's own term."""
+    return {"bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term}
 
 
 def phase_profile(dev, run, prefix):
     """One warm call of ``run`` (a page) under torch.profiler: device busy
     time and idle share over the page's wall time, kernel launches, the
-    device time of each ``prefix`` span of the page program and the torch
-    ops that take the most device time (the finder kernels are timed on
-    their own)."""
+    device time of each ``prefix`` span of the page program, the torch
+    ops and the kernels (by name, with their launches) that take the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -911,11 +1198,18 @@ def phase_profile(dev, run, prefix):
     top = sorted(((dev_us(e, True) / 1e3, e.count, e.key[:60])
                   for e in avgs if dev_us(e, True) > 0
                   and e.key.startswith("aten::")), reverse=True)[:10]
+    by_kernel = {}
+    for e in kernels:
+        ms, count = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    top_kernels = sorted(((ms, c, k[:60]) for k, (ms, c) in by_kernel.items()),
+                         reverse=True)[:8]
     emit({"phase": "profile", "spans": prefix, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
           "kernel_launches": len(kernels), "span_device_ms": spans,
-          "top_ops_device_ms": [[k, c, ms] for ms, c, k in top]})
+          "top_ops_device_ms": [[k, c, ms] for ms, c, k in top],
+          "top_kernels_device_ms": [[k, c, ms] for ms, c, k in top_kernels]})
 
 
 def finder_diff(what, got, want):
@@ -1126,7 +1420,7 @@ def phase_onehot_page(dev, sc, queries, size, card):
           "plane_bytes": sc.planes.numel(), "plane_build_ms": build_ms})
     return dict(ms=float(np.mean(ms["onehot"])), plain_ms=plain_ms,
                 bound_ms=bound_ms,
-                bound_by="bytes" if bound_by == "bytes" else "operations")
+                **bound_label(bound_by))
 
 
 def compare_mxu(eng, q, qsp, blen=None, max_dist=None):
@@ -1360,7 +1654,7 @@ def phase_mxu_page(dev, eng, page, card):
           "exact_guides_per_s": page.shape[0] / page_s,
           "sample_equal": len(sample)})
     return dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bound_by == "bytes" else "operations")
+                **bound_label(bound_by))
 
 
 def phase_sharded_page(dev, index, queries, card):
@@ -1399,11 +1693,12 @@ def phase_sharded_page(dev, index, queries, card):
         pages = k * -(-queries.shape[0] // sc.engines[0][0].query_page)
         launches[k] = got["compact_finder"]
         if torch_is_cuda(dev) and (launches[k] != pages
+                                   or got["compact_decode"] != pages
                                    or got["compact_rescan"] != pages
                                    or any(plain_calls.values())):
             fail(f"the {k}-shard page launched {got} with plain calls "
-                 f"{plain_calls}; expected {pages} compact finder and "
-                 "rescan launches")
+                 f"{plain_calls}; expected {pages} compact finder, decode "
+                 "and rescan launches")
         walls += host_walls(lambda: sc.score_sums(queries), dev, reps=2)
         finder_ms, decode_ms = [], []
         for eng in sc.engines[0]:
@@ -1823,7 +2118,7 @@ def phase_dense_page(dev, eng, queries, card):
           "last_rescored": hyb.last_rescored,
           "hybrid_guides_per_s": n / float(np.median(hyb_walls))})
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bound_by == "bytes" else "operations",
+                **bound_label(bound_by),
                 bound_terms_ms=terms)
 
 
@@ -1885,7 +2180,7 @@ def phase_scan_page(dev, eng, queries, card):
           "scan_guides_per_s": queries.shape[0] / page_s,
           "sample_max_rel_err": rel, "sample_max_score_dev": score_dev})
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bound_by == "bytes" else "operations",
+                **bound_label(bound_by),
                 bound_terms_ms=terms)
 
 
@@ -2114,6 +2409,7 @@ def kernel_counters():
     """Every kernel's wrapper and its plain version, by kernel name: the
     wrapper counts its launches (``.launches``), the plain version its
     calls (``.calls``)."""
+    from crackling_tpu_torch.ops import compact_decode as cd
     from crackling_tpu_torch.ops import compact_finder as cf
     from crackling_tpu_torch.ops import compact_onehot as co
     from crackling_tpu_torch.ops import compact_rescan as cr
@@ -2123,6 +2419,7 @@ def kernel_counters():
     return {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
             "compact_finder_onehot": (co.compact_finder_onehot,
                                       co.compact_finder_onehot_plain),
+            "compact_decode": (cd.compact_decode, cd.compact_decode_plain),
             "compact_rescan": (cr.compact_rescan, cr.compact_rescan_plain),
             "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
             "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
@@ -2141,7 +2438,67 @@ def read_counters(kernels):
             {k: kp[1].calls for k, kp in kernels.items()})
 
 
-def phase_pipeline(dev, files, engine, onehot=False, fold=None):
+@contextlib.contextmanager
+def offtarget_parts(dev):
+    """Time the parts of one ``Crackling`` run's off-target stage on the
+    host clock (each ending in a device synchronise), from here, around the
+    calls that ``Pipeline._get_issl_scorer`` and the scorers make: the
+    index load (``read_reference_issl``, ``load_native``), the compact
+    scorer's construction (its device lists), the cap-tuning first page and
+    the later pages (``CompactIsslScorer._run_pages``), the build of the
+    hybrid's exact re-scorer (``HybridIsslScorer._get_exact`` on its first
+    call: the MXU engine) and its re-scores (``MxuIsslScorer.score``).
+    Yields the dict the seconds go into; restores every call after."""
+    from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+    from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
+    from crackling_tpu_torch.pipeline import run
+
+    parts = {"index_load_s": 0.0, "scorer_build_s": 0.0, "tune_page_s": 0.0,
+             "tune_pages": 0, "later_pages_s": 0.0, "later_pages": 0,
+             "rescore_build_s": 0.0, "rescore_s": 0.0}
+
+    def timed(fn, key_of):
+        def call(*args, **kw):
+            key, count = key_of(*args)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                sync(dev)
+                parts[key] += time.perf_counter() - t
+                if count:
+                    parts[count] += len(args[1])
+
+        return call
+
+    def pages_key(scorer, _pages, *_):
+        return (("tune_page_s", "tune_pages") if not scorer._tuned
+                else ("later_pages_s", "later_pages"))
+
+    def exact_key(hybrid):
+        return ("rescore_build_s" if hybrid._exact is None
+                else "rescore_s", None)
+
+    hooks = [(run, "read_reference_issl", lambda *a: ("index_load_s", None)),
+             (run, "load_native", lambda *a: ("index_load_s", None)),
+             (CompactIsslScorer, "__init__",
+              lambda *a: ("scorer_build_s", None)),
+             (CompactIsslScorer, "_run_pages", pages_key),
+             (HybridIsslScorer, "_get_exact", exact_key),
+             (MxuIsslScorer, "score", lambda *a: ("rescore_s", None))]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in hooks]
+    try:
+        for owner, name, key_of in hooks:
+            setattr(owner, name, timed(getattr(owner, name), key_of))
+        yield parts
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_pipeline(dev, files, engine, onehot=False, fold=None,
+                   split=False):
     """``Crackling -c`` with ``[tpu] engine = <engine>`` (and, with
     ``onehot``, CRACKLING_TPU_COMPACT_ONEHOT=1 for the run; with ``fold``,
     ``[tpu] rnafold-backend = <fold>``). Every kernel's
@@ -2152,7 +2509,9 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
     ``dense_scan`` for ``dense``, ``bucket_scan`` for ``pallas``) must have
     launched, the compact rescan as often as a compact finder, and no plain
     version may have run; with the variable, the packed compact finder must
-    not have launched. Returns (launches by kernel, rows)."""
+    not have launched. With ``split`` the off-target stage's parts are
+    timed (``offtarget_parts``) and printed beside the stage's seconds.
+    Returns (launches by kernel, rows)."""
     from crackling_tpu_torch.utils import cli
 
     kernels = kernel_counters()
@@ -2178,14 +2537,16 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
     if onehot:
         os.environ["CRACKLING_TPU_COMPACT_ONEHOT"] = "1"
     # the main path's run: counts start at 0 just before, are read after
-    reset_counters(kernels)
-    t = time.perf_counter()
-    try:
-        cli.main_crackling(["-c", str(cfg)])
-        sync(dev)
-    finally:
-        os.environ.pop("CRACKLING_TPU_COMPACT_ONEHOT", None)
-    wall = time.perf_counter() - t
+    with contextlib.ExitStack() as stack:
+        parts = stack.enter_context(offtarget_parts(dev)) if split else None
+        reset_counters(kernels)
+        t = time.perf_counter()
+        try:
+            cli.main_crackling(["-c", str(cfg)])
+            sync(dev)
+        finally:
+            os.environ.pop("CRACKLING_TPU_COMPACT_ONEHOT", None)
+        wall = time.perf_counter() - t
     launches, plain_calls = read_counters(kernels)
     if on_gpu:
         if launches[main] <= 0:
@@ -2194,7 +2555,7 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
         if onehot and launches["compact_finder"]:
             fail("Crackling with CRACKLING_TPU_COMPACT_ONEHOT=1 launched the "
                  "packed compact finder")
-        check_rescan_launches(launches, f"Crackling (engine = {name})")
+        check_page_launches(launches, f"Crackling (engine = {name})")
         if any(plain_calls.values()):
             fail(f"a plain kernel version ran on the GPU path: "
                  f"{plain_calls}")
@@ -2207,17 +2568,23 @@ def phase_pipeline(dev, files, engine, onehot=False, fold=None):
                           for r in scored),
           "kernel": main, "launches": launches,
           "plain_calls": plain_calls, "wall_s": wall,
-          "stage_seconds": metrics["stage_seconds"]})
+          "stage_seconds": metrics["stage_seconds"],
+          **({"offtarget_parts": dict(
+              parts, rest_s=metrics["stage_seconds"]["offtarget_scoring"]
+              - sum(v for k, v in parts.items() if k.endswith("_s")))}
+             if split else {})})
     return launches, rows
 
 
-def check_rescan_launches(launches, what):
-    """Fail unless the compact rescan launched once per compact finder
-    launch (the page program runs one after the other)."""
+def check_page_launches(launches, what):
+    """Fail unless the compact decode and the compact rescan each launched
+    once per compact finder launch (the page program runs them one after
+    the other)."""
     finders = launches["compact_finder"] + launches["compact_finder_onehot"]
-    if launches["compact_rescan"] != finders:
-        fail(f"{what} launched the compact rescan {launches['compact_rescan']}"
-             f" times for {finders} compact finder launches")
+    for kernel in ("compact_decode", "compact_rescan"):
+        if launches[kernel] != finders:
+            fail(f"{what} launched the {kernel} kernel {launches[kernel]} "
+                 f"times for {finders} compact finder launches")
 
 
 def read_guides(path):
@@ -2451,7 +2818,7 @@ def phase_two_process(dev, files, rows_auto, card):
                 or any(res["plain_calls"].values()):
             fail(f"process {pid} of the two-process run launched "
                  f"{res['launches']} with plain calls {res['plain_calls']}")
-        check_rescan_launches(res["launches"],
+        check_page_launches(res["launches"],
                               f"process {pid} of the two-process run")
     csvs = [out / "smoke-guides.txt" for out in outs]
     if csvs[0].read_bytes() != csvs[1].read_bytes():
@@ -2621,7 +2988,8 @@ def main():
     scorer = CompactIsslScorer(index, max_dist=4, device=dev)
     compact_err = phase_kernel_vs_plain(dev, scorer, queries)
     rescan_err = phase_rescan_kernel_vs_plain(dev, scorer, queries)
-    compact, rescan = phase_scorer(dev, scorer, queries, card)
+    decode_err = phase_decode_kernel_vs_plain(dev, scorer, queries)
+    compact, rescan, decode = phase_scorer(dev, scorer, queries, card)
     phase_profile(dev, lambda: scorer.score_sums(queries), "compact.")
     del scorer
     torch.cuda.empty_cache()
@@ -2660,9 +3028,10 @@ def main():
     for fast in ("compact", "dense"):
         phase_hybrid_methods(dev, fast)
 
-    launches, rows_auto = phase_pipeline(dev, files, "auto")
+    launches, rows_auto = phase_pipeline(dev, files, "auto", split=True)
     compact["launches"] = launches["compact_finder"]
     rescan["launches"] = launches["compact_rescan"]
+    decode["launches"] = launches["compact_decode"]
     phase_fold(dev, *fold_constructs(rows_auto, queries), card)
     torch.cuda.empty_cache()
     phase_fold_pipeline(dev, files)
@@ -2721,7 +3090,11 @@ def main():
         {"name": "compact_rescan", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/compact_rescan.cu",
          "replaces": "crackling_tpu/ops/issl_compact.py:1016",
-         "max_abs_err": rescan_err, "library_ms": None, **rescan}]})
+         "max_abs_err": rescan_err, "library_ms": None, **rescan},
+        {"name": "compact_decode", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/compact_decode.cu",
+         "replaces": "crackling_tpu/ops/issl_compact.py:884",
+         "max_abs_err": decode_err, "library_ms": None, **decode}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

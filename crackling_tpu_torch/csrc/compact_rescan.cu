@@ -15,8 +15,8 @@
 // For each entry of a live row at a column below both the scan width and the
 // live length, the pair is tested as the finder tested it (exact_hit, from
 // csrc/mma_screen.cuh: at most max_dist mismatches, no earlier slice clean)
-// and a hit is scored by hit_terms (csrc/pair_terms.cuh, shared with
-// csrc/fullscan.cu): the plain version's f32 terms, then occ x term as the
+// and a hit is scored by pair_hit_terms (csrc/pair_terms.cuh, shared with
+// csrc/fullscan.cu and csrc/compact_decode.cu): the plain version's f32 terms, then occ x term as the
 // f32 product the plain version forms, widened to f64. Each row's two sums
 // go to mit_sums[hq] and cfd_sums[hq] by one f64 atomicAdd each, so kernel
 // and plain version differ only in the order of their f64 sums.
@@ -51,7 +51,7 @@ namespace {
 
 using mma_screen::exact_hit;
 using mma_screen::kFull;
-using pair_terms::hit_terms;
+using pair_terms::pair_hit_terms;
 using pair_terms::kPenalties;
 
 constexpr int kThreads = 128;
@@ -82,7 +82,6 @@ compact_rescan_kernel(const long long* __restrict__ ridx,
   __syncthreads();
 
   const unsigned long long q = qsig[r];
-  const uint32_t q_lo = (uint32_t)q, q_hi = (uint32_t)(q >> 32) & 0xFFu;
   // bytes 0..s-1 of the collapsed low word are the earlier slices; the
   // others are forced nonzero so only those can test clean
   const int s = (int)slice[r];
@@ -111,12 +110,8 @@ compact_rescan_kernel(const long long* __restrict__ ridx,
     while (hits != 0u) {
       const int col = c0 + (__ffs(hits) - 1) * kThreads;
       hits &= hits - 1u;
-      const unsigned long long x = __ldg(row + col);
-      const uint32_t e_lo = (uint32_t)x, e_hi = (uint32_t)(x >> 32) & 0xFFu;
-      const uint32_t xl = e_lo ^ q_lo, xh = e_hi ^ q_hi;
       float mit, cfd;
-      hit_terms((xl | (xl >> 1)) & 0x55555555u, (xh | (xh >> 1)) & 0x55u,
-                q_lo, q_hi, e_lo, e_hi, mit_tab, pen, pam, mit, cfd);
+      pair_hit_terms(__ldg(row + col), q, mit_tab, pen, pam, mit, cfd);
       const float w = (float)__ldg(row_occ + col);
       m += (double)__fmul_rn(mit, w);
       c += (double)__fmul_rn(cfd, w);

@@ -16,8 +16,8 @@
 // The hit test is a distance screen on the tensor cores, as in
 // csrc/compact_finder.cu (the helpers and the bucket loop, stream_bucket,
 // are csrc/mma_screen.cuh, shared with csrc/mxu_finder.cu; the per-hit
-// terms, hit_terms, are csrc/pair_terms.cuh, shared with
-// csrc/compact_rescan.cu): every
+// terms, pair_hit_terms, are csrc/pair_terms.cuh, shared with
+// csrc/compact_rescan.cu and csrc/compact_decode.cu): every
 // (entry, query) pair's distance is an int8 product (mma.sync m16n8k32) of
 // the entry's one-hot row, built in registers from its packed word, by the
 // query's weight column (1 at the lanes of the bases the query does not
@@ -85,7 +85,7 @@ namespace {
 using mma_screen::exact_hit;
 using mma_screen::kFull;
 using mma_screen::stream_bucket_nt;
-using pair_terms::hit_terms;
+using pair_terms::pair_hit_terms;
 using pair_terms::kPenalties;
 
 constexpr int kThreads = mma_screen::kStreamWarps * 32;
@@ -157,12 +157,8 @@ __device__ __forceinline__ void add_candidates(const Scan& k, uint32_t cand,
     if (k.width ? !exact_hit_raw(e, q, k.s, k.width, k.max_dist)
                 : !exact_hit(e, q, k.force, k.max_dist))
       continue;
-    const uint32_t q_lo = (uint32_t)q, q_hi = (uint32_t)(q >> 32) & 0xFFu;
-    const uint32_t e_lo = (uint32_t)e, e_hi = (uint32_t)(e >> 32) & 0xFFu;
-    const uint32_t xl = e_lo ^ q_lo, xh = e_hi ^ q_hi;
     float mit, cfd;
-    hit_terms((xl | (xl >> 1)) & 0x55555555u, (xh | (xh >> 1)) & 0x55u,
-              q_lo, q_hi, e_lo, e_hi, k.mit_tab, k.pen, k.pam, mit, cfd);
+    pair_hit_terms(e, q, k.mit_tab, k.pen, k.pam, mit, cfd);
     const double w = (double)__ldg(k.occ + r);
     const int slot = k.slot_of[col];
     atomicAdd(k.mit + slot, (double)mit * w);

@@ -1,6 +1,6 @@
 // The per-hit arithmetic of the kernels that score pairs: csrc/fullscan.cu
-// (the full-scan scorers) and csrc/compact_rescan.cu (the compact engine's
-// rescan). Each f32 term is formed as the port's plain version
+// (the full-scan scorers), csrc/compact_rescan.cu (the compact engine's
+// rescan) and csrc/compact_decode.cu (its direct and tree steps). Each f32 term is formed as the port's plain version
 // (issl_compact.pair_scores) forms it: MIT from the dense table by the
 // 20-bit mismatch mask, CFD as pam times the penalty of every mismatched
 // position in ascending order, exactly 1.0 at distance 0.
@@ -46,6 +46,20 @@ __device__ __forceinline__ void hit_terms(uint32_t cl, uint32_t ch,
     c = __fmul_rn(c, pen[p * 16 + ((qc << 2) | (oc ^ 3u))]);
   }
   cfd = c;
+}
+
+// The f32 terms of the pair (e, q) of packed signatures (40 bits of 2-bit
+// codes): hit_terms over their collapsed mismatch words.
+__device__ __forceinline__ void pair_hit_terms(unsigned long long e,
+                                               unsigned long long q,
+                                               const float* __restrict__ mit_tab,
+                                               const float* pen, float pam,
+                                               float& mit, float& cfd) {
+  const uint32_t q_lo = (uint32_t)q, q_hi = (uint32_t)(q >> 32) & 0xFFu;
+  const uint32_t e_lo = (uint32_t)e, e_hi = (uint32_t)(e >> 32) & 0xFFu;
+  const uint32_t xl = e_lo ^ q_lo, xh = e_hi ^ q_hi;
+  hit_terms((xl | (xl >> 1)) & 0x55555555u, (xh | (xh >> 1)) & 0x55u, q_lo,
+            q_hi, e_lo, e_hi, mit_tab, pen, pam, mit, cfd);
 }
 
 // The (20, 16) penalty table into shared memory, by a block of Threads.

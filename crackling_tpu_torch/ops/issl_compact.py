@@ -13,10 +13,12 @@ the page (every compaction is capped, as in the JAX program):
    dedup), plus superchunk cells on deep indexes and bucket totals.
 3. **Moment-tree decode** (:func:`decode_score`): 1-2 hit cells resolve
    pointwise from their min/max ranks at every tree level (slot total ->
-   superchunk -> chunk); only >=3-hit chunks are **rescanned**
-   (:func:`~.compact_rescan.compact_rescan`, the hand-written Hopper
-   kernel on CUDA, one launch for the page's whole list), with the hit
-   predicate and per-pair MIT/CFD evaluated and row-summed.
+   superchunk -> chunk; :func:`~.compact_decode.compact_decode`, the
+   hand-written Hopper kernel on CUDA); only >=3-hit chunks are
+   **rescanned** (:func:`~.compact_rescan.compact_rescan`, the
+   hand-written Hopper kernel on CUDA, one launch for the page's whole
+   list), with the hit predicate and per-pair MIT/CFD evaluated and
+   row-summed.
 4. Per-query MIT/CFD sums (f64) plus a 7-int header of compaction
    populations return to the host, which checks them against the caps
    the page ran with (grow-and-retry or split on overflow).
@@ -42,10 +44,10 @@ from torch.profiler import record_function
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex
 from ..pipeline.logger import printer
+from .compact_decode import Decoded, compact_decode
 from .compact_finder import FinderOut, compact_finder
 from .compact_onehot import LANES, compact_finder_onehot, onehot_planes
-from .compact_rescan import (RESCAN_BLOCK, RescanRows, ScoreTables,
-                             compact_rescan, pair_scores)
+from .compact_rescan import RESCAN_BLOCK, ScoreTables, compact_rescan
 from .hybrid import plan_query_occupancy
 from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                      cfd_pos_penalties, mit_dense_table)
@@ -92,23 +94,6 @@ def _quant_cap(pop: int, floor: int = 4096) -> int:
     jitter, and a page that does overflow grows its cap and retries."""
     need = max(floor, int(1.25 * pop) + 1)
     return -(-need // 4096) * 4096
-
-
-def compact_indices(mask: torch.Tensor, cap: int, trim: bool) -> torch.Tensor:
-    """Indices of the first ``cap`` True elements of a 1-d mask.
-
-    On an accelerator the result has exactly ``cap`` entries, -1 filled
-    (exclusive cumsum + bounded scatter), so the page program never waits
-    for the host. With ``trim`` (the CPU, where nothing runs
-    asynchronously) the -1 tail is cut off instead, so work follows the
-    population rather than the cap; results are the same."""
-    if trim:
-        return torch.nonzero(mask).flatten()[:cap]
-    pos = torch.cumsum(mask, 0) - 1
-    tgt = torch.where(mask & (pos < cap), pos, cap)
-    out = torch.full((cap + 1,), -1, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, tgt, torch.arange(mask.numel(), device=mask.device))
-    return out[:cap]
 
 
 def plan_slots(q_sig: torch.Tensor, S: int, B: int,
@@ -165,156 +150,6 @@ def score_tables(max_dist: int, device) -> ScoreTables:
         float(cfd_pam_penalties()[CFD_PAM_NGG_INDEX]))
 
 
-class Decoded(NamedTuple):
-    """Steps 1-2 of the decode and the rescan list of step 3."""
-    pops: list              # () int64 populations n_single .. n_rescan
-    mit_sums: torch.Tensor  # (n + 1,) f64: the 1-2 hit cells' terms
-    cfd_sums: torch.Tensor  # (n + 1,) f64
-    rows: RescanRows        # the >=3-hit chunks, capped at caps[5]
-
-
-def decode_tree(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
-                boff: torch.Tensor, blen: torch.Tensor,
-                entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
-                superchunk: int, caps: tuple, tabs: ScoreTables,
-                trim: bool) -> Decoded:
-    """Moment-tree decode of one page's finder output, down to the rows
-    step 3 rescans: the 1-2 hit cells scored into the sums, and the
-    >=3-hit chunks compacted into :class:`RescanRows` with cheap
-    cap-sized torch ops (no host sync)."""
-    dev = q_sig.device
-    n = q_sig.numel()
-    S, B, C, qb = fo.cnt.shape
-    nchmax, nsc = fo.nchmax, fo.nsc
-    cap1, capm, capsc, capsr, capm2, capr, _ = caps
-    epad = entries.shape[1]
-    cnt_f = fo.cnt.reshape(-1)
-    min_f = fo.rmin.reshape(-1)
-    max_f = fo.rmax.reshape(-1)
-    qsp_f = qsp.reshape(-1).long()
-    boff_f = boff.reshape(-1)
-    blen_f = blen.reshape(-1).long()
-    ent_f = entries.reshape(-1)
-    occ_f = occ.reshape(-1)
-    mit_sums = torch.zeros(n + 1, dtype=torch.float64, device=dev)
-    cfd_sums = torch.zeros(n + 1, dtype=torch.float64, device=dev)
-
-    def cell_at(slot, cell):
-        """Flat (S, B, C, qb) index of ``cell`` of flat slot
-        ``(s*B + b)*qb + j``."""
-        return ((slot // qb) * C + cell) * qb + slot % qb
-
-    def q_of(slot):
-        return qsp_f[slot].clamp(max=n)
-
-    def add(hq, mit, cfd, w):
-        mit_sums.index_add_(0, hq, (mit * w).sum(1, dtype=torch.float64))
-        cfd_sums.index_add_(0, hq, (cfd * w).sum(1, dtype=torch.float64))
-
-    def add_direct(slot, cnt, rmin, rmax, valid):
-        """Score a compacted batch of 1-2 hit cells pointwise: the min
-        rank is the (first) hit, the max rank the second when cnt == 2."""
-        hq = q_of(slot)
-        ok = valid & (hq < n)
-        v = torch.stack([ok & (cnt >= 1) & (cnt <= 2), ok & (cnt == 2)], 1)
-        rank = torch.where(v, torch.stack([rmin, rmax], 1).long(), 0)
-        sb = slot // qb
-        pos = ((sb // B) * epad + boff_f[sb])[:, None] + rank     # (N, 2)
-        _, mit, cfd = pair_scores(q_sig[hq.clamp(max=n - 1)], ent_f[pos],
-                                  tabs)
-        add(hq, mit, cfd, torch.where(v, occ_f[pos].float(), 0.0))
-
-    # 1) direct slots: 1-2 hits in the whole bucket resolve from the
-    # bucket totals alone
-    with record_function("compact.decode.direct"):
-        tot = fo.total_cell
-        slot_cnt = fo.cnt[:, :, tot, :].reshape(-1)
-        direct = (slot_cnt == 1) | (slot_cnt == 2)
-        n1 = direct.sum()
-        sidx = compact_indices(direct, cap1, trim)
-        si = sidx.clamp(min=0)
-        v1 = sidx >= 0
-        cidx = cell_at(si, tot)
-        add_direct(si, torch.where(v1, slot_cnt[si], 0), min_f[cidx],
-                   max_f[cidx], v1)
-
-    # 2) >=3-hit slots expand down the moment tree: with the superchunk
-    # level, into their superchunk cells (1-2 hit cells resolve there,
-    # >=3-hit ones expand into their chunks); without it, straight into
-    # their chunk cells. 1-2 hit chunk cells resolve pointwise.
-    with record_function("compact.decode.tree"):
-        multi = slot_cnt >= 3
-        nm = multi.sum()
-        midx = compact_indices(multi, capm, trim)
-        mi = midx.clamp(min=0)
-        vm = (midx >= 0)[:, None]
-        n_sc = n_sr = torch.zeros((), dtype=torch.int64, device=dev)
-        if superchunk:
-            cells = nchmax + torch.arange(nsc, device=dev)
-            msc = torch.where(
-                vm, cnt_f[cell_at(mi[:, None], cells[None, :])], 0)
-            n_sc = (msc > 0).sum()
-            scz = compact_indices((msc > 0).reshape(-1), capsc, trim)
-            szi = scz.clamp(min=0)
-            vsz = scz >= 0
-            s_sc = szi % nsc
-            sslot = mi[szi // nsc]
-            scnt = msc.reshape(-1)[szi]
-            cidx = cell_at(sslot, nchmax + s_sc)
-            add_direct(sslot, torch.where(vsz, scnt, 0), min_f[cidx],
-                       max_f[cidx], vsz)
-            c2sc = vsz & (scnt >= 3)
-            n_sr = c2sc.sum()
-            sridx = compact_indices(c2sc, capsr, trim)
-            sri = sridx.clamp(min=0)
-            src_slot = sslot[sri]
-            ch = (s_sc[sri][:, None] * superchunk
-                  + torch.arange(superchunk, device=dev)[None, :])
-            live = (sridx >= 0)[:, None] & (ch < nchmax)
-            cidx = cell_at(src_slot[:, None], ch.clamp(max=nchmax - 1))
-            mc = torch.where(live, cnt_f[cidx], 0)
-            width = superchunk
-            ch_flat = ch.reshape(-1)
-
-            def chunk_of(z):
-                return ch_flat[z]
-        else:
-            chj = torch.arange(nchmax, device=dev)
-            mc = torch.where(
-                vm, cnt_f[cell_at(mi[:, None], chj[None, :])], 0)
-            src_slot = mi
-            width = nchmax
-
-            def chunk_of(z):
-                return z % nchmax
-        nc = (mc > 0).sum()
-        mz = compact_indices((mc > 0).reshape(-1), capm2, trim)
-        mzc = mz.clamp(min=0)
-        vz = mz >= 0
-        mslot = src_slot[mzc // width]
-        mchk = chunk_of(mzc)
-        mcnt = mc.reshape(-1)[mzc]
-        cidx = cell_at(mslot, mchk)
-        add_direct(mslot, torch.where(vz, mcnt, 0), min_f[cidx],
-                   max_f[cidx], vz)
-
-    # 3) >=3-hit chunks: the rescan list, one row per chunk
-    with record_function("compact.decode.rescan"):
-        c2 = vz & (mcnt >= 3)
-        n2c = c2.sum()
-        ridx = compact_indices(c2, capr, trim)
-        ri = ridx.clamp(min=0)
-        rslot = mslot[ri]
-        first = mchk[ri] * chunk
-        sb = rslot // qb
-        rs = sb // B
-        hq = q_of(rslot)
-        rows = RescanRows(ridx, q_sig[hq.clamp(max=n - 1)], hq,
-                          rs * epad + boff_f[sb] + first,
-                          blen_f[sb] - first, rs)
-    return Decoded([n1, nm, n_sc, n_sr, nc, n2c], mit_sums, cfd_sums, rows)
-
-
 def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
                  boff: torch.Tensor, blen: torch.Tensor,
                  entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
@@ -327,17 +162,18 @@ def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
     compaction populations (n_single, n_mslot, n_scell, n_sresc,
     n_mcell, n_rescan, 0), sums are (n,) f64. Populations above their
     cap mean that step truncated and the sums are incomplete. Step 3 is
-    :func:`~.compact_rescan.compact_rescan` over :func:`decode_tree`'s
-    rows (``rescan_block`` bounds the plain version's temporaries)."""
+    :func:`~.compact_rescan.compact_rescan` over the rows of steps 1-2,
+    :func:`~.compact_decode.compact_decode` (``rescan_block`` bounds the
+    plain rescan's temporaries)."""
     n = q_sig.numel()
-    d = decode_tree(q_sig, qsp, fo, boff, blen, entries, occ, chunk=chunk,
-                    superchunk=superchunk, caps=caps, tabs=tabs, trim=trim)
+    d = compact_decode(q_sig, qsp, fo, boff, blen, entries, occ,
+                       chunk=chunk, superchunk=superchunk, caps=caps,
+                       tabs=tabs, trim=trim)
     with record_function("compact.decode.rescan"):
         compact_rescan(d.rows, entries.reshape(-1), occ.reshape(-1), tabs,
                        d.mit_sums, d.cfd_sums, n=n, scan_width=scan_width,
                        max_dist=max_dist, rescan_block=rescan_block)
-    header = torch.stack(d.pops + [torch.zeros((), dtype=torch.int64,
-                                               device=q_sig.device)])
+    header = torch.cat([d.pops, d.pops.new_zeros(1)])
     return header, d.mit_sums[:n], d.cfd_sums[:n]
 
 
@@ -493,8 +329,9 @@ class CompactIsslScorer:
             trim=self.device.type == "cpu")
 
     def decode_tree(self, q_sig, qsp, fo: FinderOut) -> Decoded:
-        """The decode down to its rescan list (:func:`decode_tree`)."""
-        return decode_tree(
+        """Steps 1-2 of the decode, down to its rescan list
+        (:func:`~.compact_decode.compact_decode`)."""
+        return compact_decode(
             q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
             self.entries, self.occ, chunk=self.chunk,
             superchunk=self.superchunk, caps=self._caps(), tabs=self.tables,

@@ -38,7 +38,8 @@ from ..codec import popcount64
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex, _lofirst_to_lex
 from .bits import collapse_pairs, popcount
-from .issl_compact import ALIGN, RANK_BOUND, compact_indices
+from .compact_decode import compact_indices
+from .issl_compact import ALIGN, RANK_BOUND
 from .mxu_finder import NeighbourPlanes, mxu_finder, signature_mask
 
 SLOT_ALIGN = 64       # slot count granule (the kernel's block of slots)

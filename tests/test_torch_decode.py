@@ -1,0 +1,294 @@
+"""The compact decode's steps 1-2 (``ops/compact_decode.py``,
+``csrc/compact_decode.cu``).
+
+From one page's finder cells, the decode scores every 1-2-hit cell of the
+moment tree (slot total, superchunk, chunk) pointwise into f64 sums and
+lists the >=3-hit chunks as rescan rows. ``compact_decode_plain`` is held
+to a numpy walk of the same tree over the plain finder's cells, with the
+terms of each hit from the port's own oracle (``ops/oracle.py``: the
+reference's mismatch collapse and CFD product; MIT from
+``tables.precalculated_mit_scores``): populations exact, rows equal as a
+set sorted by (hq, start), sums within rtol 1e-12 (the same f32 terms,
+summed in f64 in another order). The index is made with numpy from a seed:
+a bucket of ~3,000 sites (3 chunks of 1,024, so with ``superchunk`` 2 the
+last superchunk overhangs) whose clusters give 1-2-hit and >=3-hit cells at
+every level, single hits elsewhere, absent queries and padding slots. A cap
+below its population at any level must flag the page. The wrapper on CPU
+tensors runs the plain version; on the card it launches the kernel, held
+to the plain version (tests marked ``cuda``, skipped without a card).
+``test_torch_compact.py::test_compact_matches_jax`` holds the decode, inside
+the scorer, to the JAX engine.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from crackling_tpu_torch.index import build_index
+from crackling_tpu_torch.ops import compact_decode as cd
+from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer, plan_slots
+from crackling_tpu_torch.ops.oracle import _cfd_one, collapse_mismatches
+from crackling_tpu_torch.ops.tables import (CFD_PAM_NGG_INDEX,
+                                            cfd_pam_penalties,
+                                            cfd_pos_penalties,
+                                            precalculated_mit_scores)
+
+CHUNK = 1024
+WIDE = (1 << 17,) * 7           # caps no population reaches
+SIG40 = (1 << 40) - 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _world(seed=23):
+    """Sites and queries: 66 cluster bases sharing slice 0's value, 48 with
+    64 variants each, 6 with 4 and 12 with 3 (1-2 positions mutated
+    outside slice 0); 6 pairs of a random site and one such variant; 300
+    random fillers. Queries: 12 large and the 18 small clusters' bases,
+    the pairs' sites, 6 fillers and 6 random signatures."""
+    rng = np.random.default_rng(seed)
+
+    def pin(sigs):
+        return (sigs & ~np.uint64(0xFF)) | np.uint64(0x55)
+
+    def variant(sig):
+        v = int(sig)
+        for pos in rng.integers(4, 20, size=int(rng.integers(1, 3))):
+            v = (v & ~(3 << (2 * int(pos)))) \
+                | (int(rng.integers(0, 4)) << (2 * int(pos)))
+        return v
+
+    base = pin(rng.integers(0, 1 << 40, size=66).astype(np.uint64))
+    sizes = [64] * 48 + [4] * 6 + [3] * 12
+    pairs = rng.integers(0, 1 << 40, size=6).astype(np.uint64)
+    variants = [variant(sig) for sig, k in zip(base, sizes)
+                for _ in range(k)] + [variant(sig) for sig in pairs]
+    filler = rng.integers(0, 1 << 40, size=300).astype(np.uint64)
+    sites = np.concatenate([base, pairs, np.array(variants, np.uint64),
+                            filler])
+    queries = np.concatenate([base[:12], base[48:], pairs, filler[:6],
+                              rng.integers(0, 1 << 40, 6).astype(np.uint64)])
+    return build_index(sites), queries
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _world()
+
+
+def _page(world, max_dist, superchunk, device="cpu"):
+    """The scorer's decode inputs for the page: (scorer, q_sig, qsp, cells),
+    the cells from the plain finder; qb one slot group above the fullest
+    bucket, so every bucket has padding slots."""
+    index, queries = world
+    sc = CompactIsslScorer(index, max_dist=max_dist, chunk=CHUNK,
+                           superchunk=superchunk, caps=WIDE, device="cpu")
+    S, B = sc.S, sc.B
+    vals = (queries[None, :].astype(np.int64)
+            >> (8 * np.arange(S)[:, None])) & (B - 1)
+    fullest = max(np.bincount(v, minlength=B).max() for v in vals)
+    q = sc.query_tensor(queries)
+    qsp = plan_slots(q, S, B, -(-(fullest + 1) // 8) * 8)
+    fo = sc.finder(q, qsp)
+    if device != "cpu":
+        sc.entries, sc.occ = sc.entries.to(device), sc.occ.to(device)
+        sc.bucket_offsets = sc.bucket_offsets.to(device)
+        sc.bucket_lens = sc.bucket_lens.to(device)
+        sc.tables = sc.tables._replace(mit=sc.tables.mit.to(device),
+                                       pen=sc.tables.pen.to(device))
+        q, qsp = q.to(device), qsp.to(device)
+        fo = fo._replace(**{f: getattr(fo, f).to(device)
+                            for f in ("cnt", "rsum", "rmin", "rmax")})
+    return sc, q, qsp, fo
+
+
+def _decode(fn, sc, q, qsp, fo, caps=WIDE):
+    return fn(q, qsp, fo, sc.bucket_offsets, sc.bucket_lens, sc.entries,
+              sc.occ, chunk=sc.chunk, superchunk=sc.superchunk, caps=caps,
+              tabs=sc.tables, trim=q.device.type == "cpu")
+
+
+def _brute(sc, queries, qsp, fo):
+    """The moment tree walked in numpy over the cells: (pops, mit, cfd,
+    rows), the sums (n + 1,) f64, the rows sorted (hq, start, live, s, q)
+    tuples."""
+    cnt, rmin, rmax = (t.numpy() for t in (fo.cnt, fo.rmin, fo.rmax))
+    qsp = qsp.numpy()
+    ents, occ = sc.entries.numpy(), sc.occ.numpy()
+    boff, blen = sc.bucket_offsets.numpy(), sc.bucket_lens.numpy()
+    S, B, C, qb = cnt.shape
+    n, epad, nchmax = len(queries), ents.shape[1], fo.nchmax
+    precalc = precalculated_mit_scores(20, sc.max_dist)
+    pen = cfd_pos_penalties().astype(np.float32)
+    pam = np.float32(cfd_pam_penalties()[CFD_PAM_NGG_INDEX])
+    mit, cfd = np.zeros(n + 1), np.zeros(n + 1)
+    pops, rows = [0] * 6, []
+    for s, b, j in zip(*np.nonzero(cnt[:, :, C - 1, :])):
+        hq = min(int(qsp[s, b, j]), n)
+        first = int(boff[s, b])
+
+        def score(cell):
+            c = cnt[s, b, cell, j]
+            if hq >= n:
+                return
+            ranks = [rmin[s, b, cell, j], rmax[s, b, cell, j]][:int(c)]
+            for r in ranks:
+                e, qs = int(ents[s, first + r]), int(queries[hq])
+                cm = int(collapse_mismatches(np.uint64((e ^ qs) & SIG40)))
+                t_mit = np.float32(precalc.get(cm, 0.0))
+                t_cfd = (np.float32(1.0) if cm == 0
+                         else _cfd_one(qs, e, pen, pam))
+                w = np.float32(occ[s, first + r])
+                mit[hq] += float(np.float32(t_mit * w))
+                cfd[hq] += float(np.float32(t_cfd * w))
+
+        def chunk_cell(ch):
+            c = cnt[s, b, ch, j]
+            if c == 0:
+                return
+            pops[4] += 1
+            if c <= 2:
+                score(ch)
+                return
+            pops[5] += 1
+            rows.append((hq, s * epad + first + ch * CHUNK,
+                         int(blen[s, b]) - ch * CHUNK, s,
+                         int(queries[min(hq, n - 1)])))
+
+        if cnt[s, b, C - 1, j] <= 2:
+            pops[0] += 1
+            score(C - 1)
+            continue
+        pops[1] += 1
+        if not sc.superchunk:
+            for ch in range(nchmax):
+                chunk_cell(ch)
+            continue
+        for k in range(fo.nsc):
+            c = cnt[s, b, nchmax + k, j]
+            if c == 0:
+                continue
+            pops[2] += 1
+            if c <= 2:
+                score(nchmax + k)
+                continue
+            pops[3] += 1
+            for ch in range(k * sc.superchunk,
+                            min((k + 1) * sc.superchunk, nchmax)):
+                chunk_cell(ch)
+    return pops, mit, cfd, sorted(rows)
+
+
+def _rows(d):
+    """The live rows of a Decoded as sorted (hq, start, live, s, q)."""
+    r = d.rows
+    live = (r.ridx >= 0).cpu()
+    cols = [t.cpu()[live].tolist() for t in (r.hq, r.start, r.live, r.s,
+                                             r.q)]
+    return sorted(zip(*cols))
+
+
+@pytest.mark.parametrize("superchunk", [0, 2])
+@pytest.mark.parametrize("max_dist", [0, 2, 4])
+def test_plain_decode_matches_numpy_walk(world, max_dist, superchunk):
+    sc, q, qsp, fo = _page(world, max_dist, superchunk)
+    pops, mit, cfd, rows = _brute(sc, world[1], qsp, fo)
+    d = _decode(cd.compact_decode_plain, sc, q, qsp, fo)
+    assert d.pops.tolist() == pops
+    assert _rows(d) == rows
+    np.testing.assert_allclose(d.mit_sums.numpy(), mit, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(d.cfd_sums.numpy(), cfd, rtol=1e-12, atol=0)
+    # the page exercises every level the walk has
+    assert pops[0] > 0
+    if max_dist == 4:
+        assert pops[1] > 0 and pops[4] > pops[5] > 0
+        assert fo.nchmax == 3
+        if superchunk:
+            assert pops[2] > pops[3] > 0
+
+
+@pytest.mark.parametrize("level", range(6))
+def test_a_cap_below_its_population_flags_the_page(world, level):
+    sc, q, qsp, fo = _page(world, 4, 2)
+    true = _decode(cd.compact_decode_plain, sc, q, qsp, fo).pops.tolist()
+    assert true[level] > 0
+    caps = list(WIDE)
+    caps[level] = true[level] - 1
+    got = _decode(cd.compact_decode_plain, sc, q, qsp, fo, caps).pops
+    assert got[level] > caps[level]
+    assert got[:level + 1].tolist() == true[:level + 1]
+    assert len(_rows(_decode(cd.compact_decode_plain, sc, q, qsp, fo,
+                             caps))) <= caps[5]
+
+
+def test_wrapper_runs_plain_version_on_cpu(world):
+    sc, q, qsp, fo = _page(world, 4, 2)
+    want = _decode(cd.compact_decode_plain, sc, q, qsp, fo)
+    calls, launches = cd.compact_decode_plain.calls, cd.compact_decode.launches
+    got = _decode(cd.compact_decode, sc, q, qsp, fo)
+    assert cd.compact_decode_plain.calls == calls + 1
+    assert cd.compact_decode.launches == launches
+    assert torch.equal(got.pops, want.pops)
+    assert torch.equal(got.mit_sums, want.mit_sums)
+    assert torch.equal(got.cfd_sums, want.cfd_sums)
+    for g, w in zip(got.rows, want.rows):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fault", ["int64 qsp", "ragged cells",
+                                   "superchunk of other cells"])
+def test_wrapper_refuses_bad_inputs(world, fault):
+    sc, q, qsp, fo = _page(world, 4, 2)
+    if fault == "int64 qsp":
+        qsp = qsp.long()
+    elif fault == "ragged cells":
+        fo = fo._replace(rmax=fo.rmax[..., :-1].contiguous())
+    else:
+        sc.superchunk = 0
+    with pytest.raises(ValueError):
+        _decode(cd.compact_decode, sc, q, qsp, fo)
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_dist,superchunk", [(4, 0), (4, 2), (2, 2),
+                                                 (0, 0)])
+def test_kernel_matches_plain_version_on_the_card(world, max_dist,
+                                                  superchunk):
+    _on_card()
+    sc, q, qsp, fo = _page(world, max_dist, superchunk, "cuda")
+    want = _decode(cd.compact_decode_plain, sc, q, qsp, fo)
+    launches = cd.compact_decode.launches
+    got = _decode(cd.compact_decode, sc, q, qsp, fo)
+    torch.cuda.synchronize()
+    assert cd.compact_decode.launches == launches + 1
+    assert torch.equal(got.pops, want.pops)
+    assert _rows(got) == _rows(want)
+    for g, w in ((got.mit_sums, want.mit_sums),
+                 (got.cfd_sums, want.cfd_sums)):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(6))
+def test_kernel_flags_each_overflowing_level_on_the_card(world, level):
+    _on_card()
+    sc, q, qsp, fo = _page(world, 4, 2, "cuda")
+    true = _decode(cd.compact_decode_plain, sc, q, qsp, fo).pops.tolist()
+    caps = list(WIDE)
+    caps[level] = true[level] - 1
+    got = _decode(cd.compact_decode, sc, q, qsp, fo, caps)
+    torch.cuda.synchronize()
+    assert got.pops[level] > caps[level]
+    assert got.pops[:level + 1].tolist() == true[:level + 1]
+    assert len(_rows(got)) <= caps[5]

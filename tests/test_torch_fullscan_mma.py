@@ -32,7 +32,7 @@ from crackling_tpu_torch.ops.compact_finder import (MMA_K, mma_candidates,
 from crackling_tpu_torch.ops.compact_onehot import onehot_planes
 from crackling_tpu_torch.ops.fullscan import (ALL_K, scan_columns, scan_k,
                                               scan_rows)
-from crackling_tpu_torch.ops.issl_compact import pair_scores
+from crackling_tpu_torch.ops.compact_rescan import pair_scores
 
 # (width, slice) of every slice the bucket scan takes at 40-bit signatures
 # (S * width <= 40; at w = 16 the two slices cover positions 0-15)

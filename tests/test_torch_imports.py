@@ -95,7 +95,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = _probe()
     # every module of the port was imported ...
     for mod in ("issl_compact", "compact_finder", "compact_onehot",
-                "compact_rescan", "issl_mxu", "mxu_finder",
+                "compact_rescan", "compact_decode", "issl_mxu", "mxu_finder",
                 "issl_flat", "kernel_build", "fullscan", "issl_dense",
                 "issl_scan", "mfe"):
         assert f"crackling_tpu_torch.ops.{mod}" in res["mods"]
