@@ -21,14 +21,14 @@ Phases, each fatal on failure:
 3. score one 65,536-query page at the 27 Mbp operating point (synthetic
    genome, seed 20260816, cached under .cache/chip_smoke/) with the
    compact engine: time the finder, the decode, its steps 1-2 alone (the
-   decode kernel) and the rescan alone (on the page's own rescan list, at
-   the tuned caps) with CUDA events, the plain decode steps, the plain
-   rescan and the page with the host clock; the decode kernel's and the
-   rescan's bounds with their operations and bytes terms; check a
-   2,048-query sample against the
-   exact host scorer (sums within rtol 1e-4, hybrid verdicts identical
-   for ``and``); then profile one warm page (device busy share, per-span
-   device time);
+   decode kernel, one launch) and the rescan alone (on the page's own
+   rescan list, at the tuned caps; with the 50 MB L2 flushed before each
+   launch, and warm beside it) with CUDA events, the plain decode steps,
+   the plain rescan and the page with the host clock; the decode kernel's
+   and the rescan's bounds with their operations and bytes terms; check a
+   2,048-query sample against the exact host scorer (sums within rtol
+   1e-4, hybrid verdicts identical for ``and``); then profile one warm
+   page (device busy share, per-span device time);
 3b. hold the one-hot compact finder kernel (tensor-core int8 ``mma``) against
     its plain version, cell for cell (exact), on the small index
     (max-distance 4, 0 and 2, and a plan whose qb is not a multiple of
@@ -50,21 +50,24 @@ Phases, each fatal on failure:
     and each shard's finder and decode (CUDA events) timed; at 4 shards a
     2,048-query sample within rtol 1e-4 of the exact sums, hybrid ``and``
     verdicts identical to native exact, and a profile of one warm page;
-3e. (run before 3) hold the compact rescan kernel against its plain
-    version on the same row descriptors, per-query f64 sums within rtol
-    1e-12 / atol 1e-9: every chunk of the small index's live slots as a
-    row, with two padding rows and a row of query n (max-distance 4, 0
-    and 2), the skewed index's own rescan list (superchunk level on) and
-    the 65,536-query page's; each prints its rows, live rows and errors;
+3e. (run before 3) hold the compact rescan kernel (the blocks of a run of
+    rows sharing a chunk split it) against its plain version on the
+    same row descriptors, per-query f64 sums within rtol 1e-12 / atol
+    1e-9: every chunk of the small index's live slots as a row, with two
+    padding rows and a row of query n (max-distance 4, 0 and 2), the
+    skewed index's own rescan list (superchunk level on), the
+    65,536-query page's (grouped by chunk) and a shuffled copy of it; each
+    prints its rows, live rows, runs and errors;
 3f. (run before 3) hold the compact decode kernel (steps 1-2) against its
     plain version on the same finder cells: the small index at
     max-distance 4, 0 and 2, the skewed index's page (superchunk level on)
     and the 65,536-query page, each at the caps the auto-tuning sets from
     it: populations equal, sums within rtol 1e-12 / atol 1e-9, the live
-    rescan rows equal as a set; then with each level's cap one below its
-    population (the superchunk levels on the skewed page) both must flag
-    the page at that level; each prints its caps, populations, live rows
-    and errors;
+    rescan rows equal as a set, and the kernel's rows of each chunk one
+    consecutive run; then with each level's cap one below its population
+    (the superchunk levels on the skewed page) both must flag the page at
+    that level; each prints its caps, populations, live rows, runs and
+    errors;
 4. hold the neighbour finder kernel (the MXU engine's, an int8
    tensor-core distance screen: K = 64 at slice width 8, 96 at the
    others) against its plain version, cell for cell (exact), on the small
@@ -251,16 +254,15 @@ RESCAN_DESCRIPTOR_BYTES = 6 * 8
 # the compact decode's bound (steps 1-2): bytes, each input read once and
 # each output written once: the bucket-total count of every slot, the plan
 # entry of every slot with a hit, the min rank of every scored 1-2-hit cell
-# and its max rank at 2 hits, the count of every cell the tree pass
+# and its max rank at 2 hits, the count of every cell the tree walk
 # visits, the 8-B entry and 4-B occurrence of every distinct hit entry and
 # the 4-B MIT table entry of every distinct hit mask, the 8-B signature and
 # two f64 sums of every query it scores, the whole (6, caps[5]) row block
 # written, and the 4-B bucket length of every >=3-hit slot (its cells are
-# counted only up to that length: a cell past it holds no hit); the
-# kernel's own list of >=3-hit slots is scratch of its two-pass design and
-# is not counted; operations: ~8 32-bit
-# operations per slot (the count tests, two ballots, the list offset) and
-# per scored hit the full-scan scorers' ~64
+# counted only up to that length: a cell past it holds no hit); a
+# kernel's own scratch is not counted; operations: ~8 32-bit operations
+# per slot (the count tests, two ballots, the list offset) and per scored
+# hit the full-scan scorers' ~64
 DECODE_SLOT_OPS = 8
 # the scan-style engine's page (its default query_page)
 SCAN_PAGE = 8192
@@ -348,6 +350,30 @@ def queued_ms(fn, reps, dev):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def flushed_ms(fn, reps, dev):
+    """Mean device ms per call of ``fn`` with the L2 cache flushed before
+    each: a 256 MB buffer (the H100's L2 holds 50 MB) is written between
+    calls, and CUDA events time each call alone; a spin kernel holds the
+    stream while the host enqueues them all."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return timed_ms(fn, reps, dev)
+    fn()
+    sync(dev)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(2e7 * reps / 10))
+    for t0, t1 in events:
+        flush.fill_(1)
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in events) / reps
 
 
 def host_walls(fn, dev, reps=3):
@@ -734,12 +760,35 @@ def compare_rescan(scorer, rows, n):
     return abs_err, rel_err, rows.ridx.numel(), live
 
 
+def chunk_runs(rows, n):
+    """(runs, distinct): the runs of equal start among the list's live
+    rows (``ridx >= 0``, ``hq < n``) in list order, and their distinct
+    starts; equal when the rows of each chunk are consecutive."""
+    starts = rows.start[(rows.ridx >= 0) & (rows.hq < n)].tolist()
+    runs = sum(1 for i, st in enumerate(starts)
+               if i == 0 or st != starts[i - 1])
+    return runs, len(set(starts))
+
+
+def shuffled_rows(rows, seed):
+    """A copy of a rescan list in a random order (seeded)."""
+    import torch
+
+    from crackling_tpu_torch.ops.compact_rescan import RescanRows
+
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(rows.ridx.numel(), generator=gen).to(rows.q.device)
+    return RescanRows(*(t[perm].contiguous() for t in rows))
+
+
 def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
     """Phase 3e: the rescan kernel against its plain version on the same
     row descriptors: every chunk of the small index's live slots at
     max-distance 4, 0 and 2 (with padding rows and a row of query n), the
-    skewed index's own rescan list (superchunk level on) and the
-    65,536-query page's. Returns the largest absolute error."""
+    skewed index's own rescan list (superchunk level on), the
+    65,536-query page's (grouped by chunk, as the decode kernel lists it)
+    and a shuffled copy of it (runs of one row). Each prints its runs of
+    rows sharing a chunk. Returns the largest absolute error."""
     from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
 
     errs = []
@@ -749,9 +798,11 @@ def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
         if not live:
             fail(f"the rescan comparison on {what} has no live row")
         errs.append(abs_err)
+        runs, chunks = chunk_runs(rows, n)
         emit({"phase": "rescan_kernel_vs_plain", "input": what,
               "max_dist": sc.max_dist, "rows": total, "live_rows": live,
-              **extra, "max_abs_err": abs_err, "max_rel_err": rel_err})
+              "runs": runs, "chunks": chunks, **extra,
+              "max_abs_err": abs_err, "max_rel_err": rel_err})
 
     index, queries = small_world()
     for max_dist in (4, 0, 2):
@@ -765,8 +816,10 @@ def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
              f"(nchmax {sc._nchmax})")
     check("skewed, its rescan list", sc, *page_rescan_rows(sc, queries),
           superchunk=sc.superchunk)
-    check("bench page, its rescan list", bench_scorer,
-          *page_rescan_rows(bench_scorer, bench_queries))
+    rows, n = page_rescan_rows(bench_scorer, bench_queries)
+    check("bench page, its rescan list", bench_scorer, rows, n)
+    check("bench page, its rescan list shuffled", bench_scorer,
+          shuffled_rows(rows, SEED), n)
     return max(errs)
 
 
@@ -790,9 +843,10 @@ def compare_decode(scorer, q, qsp, fo, caps):
     at ``caps``. Within the caps the populations must be equal, the sums
     within rtol 1e-12 / atol 1e-9 (the same f32 terms summed in f64 in
     another order) and the live rows equal as a set; over a cap both must
-    flag it, with equal populations up to the first over its cap. Returns
-    (populations, max abs err, max rel err, live rows, the first level over
-    its cap or None)."""
+    flag it, with equal populations up to the first over its cap. The
+    kernel's rows of each chunk must be consecutive. Returns (populations,
+    max abs err, max rel err, live rows, the first level over its cap or
+    None, runs of rows sharing a chunk)."""
     import torch
 
     from crackling_tpu_torch.ops.compact_decode import (compact_decode,
@@ -802,6 +856,7 @@ def compare_decode(scorer, q, qsp, fo, caps):
     got = compact_decode(*args, **kw)
     want = compact_decode_plain(*args, **kw)
     sync(q.device)
+    runs = grouped_runs(got, q.numel(), "the decode comparison")
     gp, wp = got.pops.tolist(), want.pops.tolist()
     over = [p > c for p, c in zip(wp, caps)]
     if any(over):
@@ -809,7 +864,7 @@ def compare_decode(scorer, q, qsp, fo, caps):
         if gp[lvl] <= caps[lvl] or gp[:lvl + 1] != wp[:lvl + 1]:
             fail(f"the decode kernel's populations {gp} do not flag cap "
                  f"{lvl} ({caps[lvl]}) as the plain version's {wp} do")
-        return wp, 0.0, 0.0, len(live_rows(got)), lvl
+        return wp, 0.0, 0.0, len(live_rows(got)), lvl, runs
     if gp != wp:
         fail(f"decode kernel populations {gp} differ from the plain "
              f"version's {wp}")
@@ -827,7 +882,18 @@ def compare_decode(scorer, q, qsp, fo, caps):
         fail("the decode kernel's rescan rows differ from the plain "
              "version's as a set")
     return (wp, max(e[0] for e in errs), max(e[1] for e in errs),
-            len(rows), None)
+            len(rows), None, runs)
+
+
+def grouped_runs(d, n, what):
+    """The runs of a decode's live rows sharing a chunk; the kernel's (on
+    the card) fail unless each chunk's rows are one consecutive run (the
+    plain version, which the CPU runs, lists a slot's chunks together)."""
+    runs, chunks = chunk_runs(d.rows, n)
+    if d.rows.start.device.type == "cuda" and runs != chunks:
+        fail(f"{what}: the decode kernel's rows of {chunks} chunks come in "
+             f"{runs} runs, not grouped by chunk")
+    return runs
 
 
 def tuned_caps(scorer, q, qsp, fo):
@@ -848,7 +914,8 @@ def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
     skewed index's page (superchunk level on) and the 65,536-query page,
     each at the caps the auto-tuning sets from it; then each level's cap
     one below its population, the superchunk levels on the skewed page,
-    the others on the 65,536-query page: both must flag it. Returns the
+    the others on the 65,536-query page: both must flag it. Every kernel
+    list must come grouped by chunk; each line prints its runs. Returns the
     largest absolute error."""
     from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
 
@@ -864,7 +931,7 @@ def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
                 fail(f"{what} has no population {level} to overflow")
             caps = list(caps)
             caps[level] = pops[level] - 1
-        pops, abs_err, rel_err, rows, flagged = compare_decode(
+        pops, abs_err, rel_err, rows, flagged, runs = compare_decode(
             sc, q, qsp, fo, caps)
         if level is not None and flagged != level:
             fail(f"{what}: cap {level} below its population was not the "
@@ -873,7 +940,7 @@ def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
         emit({"phase": "decode_kernel_vs_plain", "input": what,
               "max_dist": sc.max_dist, "superchunk": sc.superchunk,
               "caps": list(caps), "populations": pops, "live_rows": rows,
-              "flagged_level": flagged, "max_abs_err": abs_err,
+              "runs": runs, "flagged_level": flagged, "max_abs_err": abs_err,
               "max_rel_err": rel_err})
         return pops
 
@@ -1072,6 +1139,11 @@ def phase_scorer(dev, scorer, queries, card):
     n = q.numel()
     sums = zero_sums(n, dev)
     opts = rescan_options(scorer, n)
+    # its 66 MB of distinct chunks exceed the L2, which the page's finder
+    # streams over first: timed with the L2 flushed before each launch,
+    # and warm (back to back) beside it
+    rescan_flushed_ms = flushed_ms(lambda: compact_rescan(
+        rows, *rescan_lists(scorer), *sums, **opts), 10, dev)
     rescan_ms = timed_ms(lambda: compact_rescan(
         rows, *rescan_lists(scorer), *sums, **opts), 10, dev)
     rescan_queued_ms = queued_ms(lambda: compact_rescan(
@@ -1133,9 +1205,11 @@ def phase_scorer(dev, scorer, queries, card):
           "finder_bound_terms_ms": terms,
           "rescan_rows": rows.ridx.numel(),
           "rescan_live_rows": int(((rows.ridx >= 0) & (rows.hq < n)).sum()),
+          "rescan_runs": chunk_runs(rows, n)[0],
           "rescan_pairs": rescan_pairs, "rescan_hits": rescan_hits,
           "rescan_distinct_entries": rescan_entries,
-          "rescan_ms": rescan_ms, "rescan_queued_ms": rescan_queued_ms,
+          "rescan_flushed_ms": rescan_flushed_ms, "rescan_ms": rescan_ms,
+          "rescan_queued_ms": rescan_queued_ms,
           "rescan_plain_ms": rescan_plain_ms,
           "rescan_bound_ms": rescan_bound, "rescan_bound_by": rescan_by,
           "rescan_bound_terms_ms": rescan_terms,
@@ -1146,8 +1220,9 @@ def phase_scorer(dev, scorer, queries, card):
           "sample_max_rel_err": rel_err})
     return (dict(ms=finder_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  **bound_label(bound_by)),
-            dict(ms=rescan_ms, plain_ms=rescan_plain_ms,
-                 bound_ms=rescan_bound, **bound_label(rescan_by)),
+            dict(ms=rescan_flushed_ms, warm_ms=rescan_queued_ms,
+                 plain_ms=rescan_plain_ms, bound_ms=rescan_bound,
+                 **bound_label(rescan_by)),
             dict(ms=decode_kernel_ms, plain_ms=decode_plain_ms,
                  bound_ms=decode_bound, **bound_label(decode_by)))
 

@@ -22,31 +22,36 @@
 // the rows and of the f64 additions is all that differs from the plain
 // version.
 //
-// Two passes, launched one after the other on the caller's stream:
-// * the slot pass, one thread per slot (neighbouring threads on neighbouring
-//   slots of a bucket, so the bucket-total loads coalesce), scores the
-//   1-2-hit slots, counts n_single and n_mslot and appends each >=3-hit slot
-//   to a list (one atomicAdd per block on the n_mslot counter, written only
-//   below cap_multi); its first cap_rescan threads also write the padding
-//   rows of the rescan list (ridx -1, hq n, start and live 0);
-// * the tree pass, one warp per entry of that list, its grid sized by
-//   cap_multi: warps past the counter leave at once, so nothing waits for
-//   the host. The lanes walk the slot's cells 32 at a time, only those of
-//   the bucket's live chunks (ceil(blen / chunk)); a >=3-hit chunk
-//   takes its row index from the n_rescan counter (one atomicAdd per warp
-//   and round) and is written only below cap_rescan. The lanes' sums and
-//   counts are reduced in the warp: one atomicAdd each per slot.
-// Counters count past their caps; only the writes stop there.
+// What bounds it on the H100: bytes, ~6 MB at the 65,536-query page (the
+// slot totals, the plan, the live cells of the >=3-hit slots, per hit an 8-B
+// entry, a 4-B occurrence and a 4-B MIT table entry, the row block), ~2 us.
+// Its work is a few dependent loads per slot, so latency sets its time.
 //
-// What bounds it on the H100: bytes. The 65,536-query page has 409,600
-// slots: 1.6 MB of bucket totals, read once, and the plan of the slots with
-// hits; the other reads (min and max rank of each 1-2-hit cell, the live
-// cells of the >=3-hit slots, and per hit an 8-B entry, a 4-B occurrence
-// and a 4-B MIT table entry) are scattered and few, ~6 MB in all, ~2 us. At
-// that size the two launches and each warp's chain of dependent scattered
-// loads (list, plan, cells, ranks, entries, table) set its time, not the
-// bound. The design keeps the bulk read coalesced and makes everything
-// else follow the data, not the caps.
+// The design: one launch, bucket-major. A block of 128 threads owns one
+// (slice, bucket) and, on grid.y, one share of its walk (at most
+// kChunksPerBlock chunk cells, whole superchunks when that level is on), so
+// a long bucket spreads over several blocks; blocks past a bucket's live
+// cells only take their ticket. The bucket's qb slots are contiguous in the
+// cells and the plan, so the block reads its bucket totals and plan
+// coalesced, and lists its >=3-hit slots in shared memory in slot order.
+// It then walks the superchunk cells of those slots (>=3-hit ones listed in
+// (superchunk, slot) order) and their chunk cells, in (chunk offset, parent)
+// order, so that a warp reads cells of one chunk row and the >=3-hit chunk
+// cells of one chunk are adjacent pairs; each round records them as a
+// ballot word in a shared bitmap. Counting first: one atomicAdd per block
+// on the n_rescan word claims all its rows and takes the block's ticket
+// (rows in its low bits, tickets above), and the bitmap's prefix sums place
+// the rows, so the rows of a chunk are consecutive in the list (the
+// rescan's blocks of one chunk's rows split it and read it once). The block that takes the last
+// ticket sees every block's rows: it writes n_rescan and the padding rows
+// (ridx -1, hq n, start and live 0) from there to cap_rescan; live rows lie
+// below, so nothing races. Scoring last: the 1-2-hit cells are read again
+// (from L1) and scored with no barrier after them, the loads of a thread's
+// cells in stages, so its chains of dependent loads (plan, ranks, entries,
+// table) overlap. The block's populations are tallied in shared memory and
+// added once, each counter on a 128-B line of its own: 1,280 blocks' atomics
+// on one line queue one after another. Counters count past their caps;
+// only the writes stop there.
 //
 // Contract: allocates nothing, adds into the sums and the counters the
 // caller zeroed, and the C entry point returns cudaGetLastError().
@@ -61,11 +66,20 @@ namespace {
 using pair_terms::pair_hit_terms;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlotRounds = 2;          // slots a thread loads at once
+constexpr int kChunksPerBlock = 32;     // chunk cells of a block's walk
+constexpr long long kMaxShared = 227 * 1024;
 
-// the counters, in the header's order
+// the counters, in the header's order, one per 128-B line (kLine int64) so
+// that the blocks' atomics on one never queue behind another's
 enum Counter { kSingle, kMslot, kScell, kSresc, kMcell, kRescan };
+constexpr int kLine = 16;
+// a block claims its rows and takes its ticket in one atomicAdd on the
+// n_rescan word: rows in the low kRowBits, tickets above them
+constexpr int kRowBits = 40;
+constexpr unsigned long long kRowMask = (1ull << kRowBits) - 1ull;
 // the rescan list's fields, one row of the (6, cap_rescan) block each
 enum RowField { kRidx, kQ, kHq, kStart, kLive, kSlice };
 
@@ -85,188 +99,334 @@ struct Args {
   int B, C, qb, n;
   long long epad;
   int nchmax, nsc, superchunk, chunk;
-  long long slots, cap_multi, cap_rescan;
-  int* multi;                         // (cap_multi,) flat slot ids
-  unsigned long long* ctr;            // (6,) the populations
+  int per_block;                      // walked cells (chunk or superchunk)
+  int lcap;                           // >=3-hit superchunk cells listed
+  long long cap_rescan;
+  unsigned long long* ctr;            // (6, kLine): column 0 counts
   double* mit_sums;                   // (n + 1,)
   double* cfd_sums;
   long long* rows;                    // (6, cap_rescan)
 };
 
-__device__ __forceinline__ unsigned lanes_below(int lane) {
-  return (1u << lane) - 1u;
-}
-
-// One hit at flat entry position pos: its terms times its occurrence.
-__device__ __forceinline__ void score_hit(const Args& a, long long pos,
-                                          unsigned long long q, double& m,
-                                          double& c) {
-  float mit, cfd;
-  pair_hit_terms(__ldg(a.entries + pos), q, a.mit_tab, a.pen, a.pam, mit,
-                 cfd);
-  const float w = (float)__ldg(a.occ + pos);
-  m += (double)__fmul_rn(mit, w);
-  c += (double)__fmul_rn(cfd, w);
-}
-
-// A cell of 1 or 2 hits: the min rank, and the max rank when it holds 2.
-__device__ __forceinline__ void score_cell(const Args& a, long long cell,
-                                           int count, long long base,
-                                           unsigned long long q, double& m,
-                                           double& c) {
-  score_hit(a, base + __ldg(a.rmin + cell), q, m, c);
-  if (count == 2) score_hit(a, base + __ldg(a.rmax + cell), q, m, c);
-}
-
-__global__ void __launch_bounds__(kThreads) decode_slots_kernel(Args a) {
-  __shared__ int direct_of[kWarps], multi_of[kWarps];
-  __shared__ unsigned long long multi_base;
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (i < a.cap_rescan) {
-    a.rows[kRidx * a.cap_rescan + i] = -1;
-    a.rows[kQ * a.cap_rescan + i] = 0;
-    a.rows[kHq * a.cap_rescan + i] = a.n;
-    a.rows[kStart * a.cap_rescan + i] = 0;
-    a.rows[kLive * a.cap_rescan + i] = 0;
-    a.rows[kSlice * a.cap_rescan + i] = 0;
-  }
-  long long sb = 0, total = 0;
-  int count = 0;
-  if (i < a.slots) {
-    sb = i / a.qb;
-    total = (sb * a.C + a.C - 1) * a.qb + i % a.qb;
-    count = __ldg(a.cnt + total);
-  }
-  const bool direct = count == 1 || count == 2, multi = count >= 3;
-  const unsigned dm = __ballot_sync(kFull, direct);
-  const unsigned mm = __ballot_sync(kFull, multi);
-  if (lane == 0) {
-    direct_of[warp] = __popc(dm);
-    multi_of[warp] = __popc(mm);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int nd = 0, nm = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      nd += direct_of[w];
-      const int k = multi_of[w];
-      multi_of[w] = nm;                 // the warp's offset in the block
-      nm += k;
-    }
-    if (nd) atomicAdd(a.ctr + kSingle, (unsigned long long)nd);
-    multi_base = nm ? atomicAdd(a.ctr + kMslot, (unsigned long long)nm) : 0;
-  }
-  __syncthreads();
-  if (multi) {
-    const unsigned long long k =
-        multi_base + multi_of[warp] + __popc(mm & lanes_below(lane));
-    if (k < (unsigned long long)a.cap_multi) a.multi[k] = (int)i;
-  }
-  if (!direct) return;
-  const int hq = min(__ldg(a.qsp + i), a.n);
-  if (hq >= a.n) return;
-  const long long base = sb / a.B * a.epad + __ldg(a.boff + sb);
-  double m = 0.0, c = 0.0;
-  score_cell(a, total, count, base, __ldg(a.qsig + hq), m, c);
-  atomicAdd(a.mit_sums + hq, m);
-  atomicAdd(a.cfd_sums + hq, c);
-}
-
-// The slot a warp of the tree pass walks, and what its lanes gather.
-struct Walk {
-  long long cell0;            // flat cell 0 of the slot; cell k at + k*qb
-  long long base;             // flat position of the bucket's rank 0
-  long long blen;
-  unsigned long long q;
-  int hq, slice, lane;
-  int scell = 0, sresc = 0, mcell = 0;
-  double m = 0.0, c = 0.0;
+// The block's scalars in shared memory.
+struct Block {
+  int scan[kWarps];
+  int tally[kRescan + 1];             // kSingle .. kMcell, then its rows
+  unsigned long long first;           // its first row
+  unsigned long long final;           // the last block: rows written
 };
 
-// One round of chunk cells, ch on each lane where ``live``: 1-2-hit cells
-// scored, >=3-hit ones appended to the rescan list. Warp-uniform.
-__device__ __forceinline__ void visit_chunks(const Args& a, Walk& w, int ch,
-                                             bool live) {
-  const long long cell = w.cell0 + (long long)ch * a.qb;
-  const int count = live ? __ldg(a.cnt + cell) : 0;
-  w.mcell += count > 0;
-  if ((count == 1 || count == 2) && w.hq < a.n)
-    score_cell(a, cell, count, w.base, w.q, w.m, w.c);
-  const unsigned big = __ballot_sync(kFull, count >= 3);
-  if (!big) return;
-  unsigned long long first = 0;
-  if (w.lane == 0)
-    first = atomicAdd(a.ctr + kRescan, (unsigned long long)__popc(big));
-  first = __shfl_sync(kFull, first, 0);
-  if (count < 3) return;
-  const unsigned long long k = first + __popc(big & lanes_below(w.lane));
-  if (k >= (unsigned long long)a.cap_rescan) return;
-  const long long lead = (long long)ch * a.chunk;
-  a.rows[kRidx * a.cap_rescan + k] = (long long)k;
-  a.rows[kQ * a.cap_rescan + k] = (long long)w.q;
-  a.rows[kHq * a.cap_rescan + k] = w.hq;
-  a.rows[kStart * a.cap_rescan + k] = w.base + lead;
-  a.rows[kLive * a.cap_rescan + k] = w.blen - lead;
-  a.rows[kSlice * a.cap_rescan + k] = w.slice;
+// Exclusive prefix sum of v over the block's threads in thread order, and
+// its total. Every thread of the block calls it.
+__device__ __forceinline__ int block_scan(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int s = scratch[w];
+    before += w < warp ? s : 0;
+    total += s;
+  }
+  __syncthreads();
+  return before + x - v;
 }
 
-__global__ void __launch_bounds__(kThreads) decode_tree_kernel(Args a) {
-  const long long listed = min((long long)a.ctr[kMslot], a.cap_multi);
-  const long long e = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (e >= listed) return;                        // uniform over the warp
-  const long long slot = a.multi[e];
-  const long long sb = slot / a.qb;
-  Walk w;
-  w.lane = threadIdx.x & 31;
-  w.cell0 = sb * a.C * a.qb + slot % a.qb;
-  w.slice = (int)(sb / a.B);
-  w.base = w.slice * a.epad + __ldg(a.boff + sb);
-  w.blen = __ldg(a.blen + sb);
-  w.hq = min(__ldg(a.qsp + slot), a.n);
-  w.q = __ldg(a.qsig + min(w.hq, a.n - 1));
-  // the bucket's live chunks: a cell past its length holds no hit
-  const int nlive = (int)min((long long)a.nchmax,
-                             (w.blen + a.chunk - 1) / a.chunk);
-  if (a.superchunk) {
-    const int nsc = min(a.nsc, (nlive + a.superchunk - 1) / a.superchunk);
-    for (int r = 0; r < nsc; r += 32) {
-      const int sc = r + w.lane;
-      const long long cell = w.cell0 + (long long)(a.nchmax + sc) * a.qb;
-      const int count = sc < nsc ? __ldg(a.cnt + cell) : 0;
-      w.scell += count > 0;
-      w.sresc += count >= 3;
-      if ((count == 1 || count == 2) && w.hq < a.n)
-        score_cell(a, cell, count, w.base, w.q, w.m, w.c);
-      for (unsigned big = __ballot_sync(kFull, count >= 3); big;
-           big &= big - 1u) {
-        const int first = (r + __ffs(big) - 1) * a.superchunk;
-        for (int k = 0; k < a.superchunk; k += 32) {
-          const int ch = first + k + w.lane;
-          visit_chunks(a, w, ch, k + w.lane < a.superchunk && ch < nlive);
-        }
-      }
-    }
-  } else {
-    for (int ch = w.lane; ch - w.lane < nlive; ch += 32)
-      visit_chunks(a, w, ch, ch < nlive);
+// The warp's flags added into a tally of the block. Warp-uniform.
+__device__ __forceinline__ void tally(int* t, bool flag) {
+  const int k = __popc(__ballot_sync(kFull, flag));
+  if ((threadIdx.x & 31) == 0 && k) atomicAdd(t, k);
+}
+
+// A thread's cells of 1 or 2 hits (count 1-2 and a query hq < n; the
+// others are skipped): the min rank of each, and the max rank when it holds
+// 2, added into its query's sums. The loads go in stages over all N cells
+// (ranks and signatures, then entries and occurrences, then the table), so
+// each stage's loads are in flight together.
+template <int N>
+__device__ __forceinline__ void score_cells(const Args& a,
+                                            const long long (&cell)[N],
+                                            const int (&count)[N],
+                                            const int (&hq)[N],
+                                            long long base) {
+  unsigned long long q[N];
+  long long lo[N], hi[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const bool ok = (count[i] == 1 || count[i] == 2) && hq[i] < a.n;
+    q[i] = ok ? __ldg(a.qsig + hq[i]) : 0ull;
+    lo[i] = ok ? base + __ldg(a.rmin + cell[i]) : -1;
+    hi[i] = ok && count[i] == 2 ? base + __ldg(a.rmax + cell[i]) : -1;
+  }
+  unsigned long long e[N][2];
+  int w[N][2];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    e[i][0] = lo[i] >= 0 ? __ldg(a.entries + lo[i]) : 0ull;
+    w[i][0] = lo[i] >= 0 ? __ldg(a.occ + lo[i]) : 0;
+    e[i][1] = hi[i] >= 0 ? __ldg(a.entries + hi[i]) : 0ull;
+    w[i][1] = hi[i] >= 0 ? __ldg(a.occ + hi[i]) : 0;
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    w.m += __shfl_down_sync(kFull, w.m, o);
-    w.c += __shfl_down_sync(kFull, w.c, o);
-    w.scell += __shfl_down_sync(kFull, w.scell, o);
-    w.sresc += __shfl_down_sync(kFull, w.sresc, o);
-    w.mcell += __shfl_down_sync(kFull, w.mcell, o);
+  for (int i = 0; i < N; ++i) {
+    if (lo[i] < 0) continue;
+    double m = 0.0, c = 0.0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && hi[i] < 0) break;
+      float mit, cfd;
+      pair_hit_terms(e[i][h], q[i], a.mit_tab, a.pen, a.pam, mit, cfd);
+      const float wt = (float)w[i][h];
+      m += (double)__fmul_rn(mit, wt);
+      c += (double)__fmul_rn(cfd, wt);
+    }
+    atomicAdd(a.mit_sums + hq[i], m);
+    atomicAdd(a.cfd_sums + hq[i], c);
   }
-  if (w.lane != 0) return;
-  if (w.hq < a.n) {
-    atomicAdd(a.mit_sums + w.hq, w.m);
-    atomicAdd(a.cfd_sums + w.hq, w.c);
+}
+
+// Pair t of the chunk level: its chunk and the index of its >=3-hit slot.
+// Pairs run in (chunk offset, parent) order: a parent is a listed slot
+// (chunks lo + u) or a listed superchunk cell (chunks sc * superchunk + u).
+__device__ __forceinline__ void chunk_pair(const Args& a, int t, int np,
+                                           int lo, const int* sclist,
+                                           int& ch, int& k) {
+  const int u = t / np, l = t % np;
+  if (a.superchunk) {
+    const int e = sclist[l];
+    ch = (e >> 16) * a.superchunk + u;
+    k = e & 0xFFFF;
+  } else {
+    ch = lo + u;
+    k = l;
   }
-  if (w.scell) atomicAdd(a.ctr + kScell, (unsigned long long)w.scell);
-  if (w.sresc) atomicAdd(a.ctr + kSresc, (unsigned long long)w.sresc);
-  if (w.mcell) atomicAdd(a.ctr + kMcell, (unsigned long long)w.mcell);
+}
+
+// 12 blocks an SM (40 registers): the 65,536-query page's 1,280 blocks are
+// all resident at once
+__global__ void __launch_bounds__(kThreads, 12) decode_kernel(Args a) {
+  extern __shared__ int dyn[];
+  __shared__ Block sh;
+  int* mslot = dyn;                         // (qb) >=3-hit slots, in order
+  int* mhq = mslot + a.qb;                  // (qb) their queries (n: none)
+  int* sclist = mhq + a.qb;                 // (lcap) superchunk << 16 | k
+  unsigned* big = reinterpret_cast<unsigned*>(sclist + a.lcap);
+
+  const int tid = threadIdx.x, y = blockIdx.y;
+  const long long sb = blockIdx.x;
+  const int s = (int)(sb / a.B);
+  const long long blen = __ldg(a.blen + sb);
+  const long long base = s * a.epad + __ldg(a.boff + sb);
+  // the bucket's live chunks: a cell past its length holds no hit
+  const int nlive = (int)min((long long)a.nchmax,
+                             (blen + a.chunk - 1) / a.chunk);
+  const int nwalk =
+      a.superchunk ? min(a.nsc, (nlive + a.superchunk - 1) / a.superchunk)
+                   : nlive;
+  const int lo = y * a.per_block, hi = min(lo + a.per_block, nwalk);
+  const bool walk = lo < hi;
+  const long long cell0 = sb * a.C * a.qb;  // cell c of slot j: + c*qb + j
+  const long long total0 = cell0 + (long long)(a.C - 1) * a.qb;
+  if (tid <= kRescan) sh.tally[tid] = 0;
+  __syncthreads();
+
+  // the slot level: bucket totals and plan, coalesced; the >=3-hit slots
+  // listed in slot order
+  int nm = 0;
+  if (y == 0 || walk) {
+    for (int j0 = 0; j0 < a.qb; j0 += kSlotRounds * kThreads) {
+      int count[kSlotRounds], hq[kSlotRounds];
+#pragma unroll
+      for (int r = 0; r < kSlotRounds; ++r) {
+        const int j = j0 + r * kThreads + tid;
+        count[r] = j < a.qb ? __ldg(a.cnt + total0 + j) : 0;
+        hq[r] = j < a.qb ? __ldg(a.qsp + sb * a.qb + j) : a.n;
+      }
+#pragma unroll
+      for (int r = 0; r < kSlotRounds; ++r) {
+        if (j0 + r * kThreads >= a.qb) break;       // uniform
+        if (y == 0) {
+          tally(sh.tally + kSingle, count[r] == 1 || count[r] == 2);
+          tally(sh.tally + kMslot, count[r] >= 3);
+        }
+        int total;
+        const int k = nm + block_scan(count[r] >= 3, sh.scan, total);
+        if (count[r] >= 3) {
+          mslot[k] = j0 + r * kThreads + tid;
+          mhq[k] = min(hq[r], a.n);
+        }
+        nm += total;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tree: superchunk cells (listing the >=3-hit ones), then chunk cells
+  // (a ballot word of >=3-hit ones per warp and round)
+  int np = 0, width = 0;
+  if (walk && nm > 0) {
+    if (a.superchunk) {
+      const int pairs = (hi - lo) * nm;
+      for (int p0 = 0; p0 < pairs; p0 += kThreads) {
+        const int p = p0 + tid;
+        int count = 0, sc = 0, k = 0;
+        if (p < pairs) {
+          sc = lo + p / nm;
+          k = p % nm;
+          count = __ldg(a.cnt + cell0 + (long long)(a.nchmax + sc) * a.qb +
+                        mslot[k]);
+        }
+        tally(sh.tally + kScell, count > 0);
+        tally(sh.tally + kSresc, count >= 3);
+        int total;
+        const int at = np + block_scan(count >= 3, sh.scan, total);
+        if (count >= 3) sclist[at] = sc << 16 | k;
+        np += total;
+      }
+      width = a.superchunk;
+      __syncthreads();
+    } else {
+      np = nm;
+      width = hi - lo;
+    }
+    const int pairs = width * np;
+    for (int t0 = 0; t0 < pairs; t0 += kThreads) {
+      const int t = t0 + tid;
+      int count = 0;
+      if (t < pairs) {
+        int ch, k;
+        chunk_pair(a, t, np, lo, sclist, ch, k);
+        if (ch < nlive)
+          count = __ldg(a.cnt + cell0 + (long long)ch * a.qb + mslot[k]);
+      }
+      tally(sh.tally + kMcell, count > 0);
+      const unsigned word = __ballot_sync(kFull, count >= 3);
+      if ((tid & 31) == 0 && t0 + (tid & ~31) < pairs) {
+        big[(t0 >> 5) + (tid >> 5)] = word;
+        if (word) atomicAdd(sh.tally + kRescan, __popc(word));
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's populations added once; its rows claimed and its ticket
+  // taken in one atomicAdd. The last ticket sees every block's rows, so
+  // that block writes n_rescan and the padding after the rows.
+  const unsigned long long cap = (unsigned long long)a.cap_rescan;
+  if (tid == 0) {
+    for (int c = kSingle; c <= kMcell; ++c)
+      if (sh.tally[c])
+        atomicAdd(a.ctr + c * kLine, (unsigned long long)sh.tally[c]);
+    const unsigned long long rows = (unsigned long long)sh.tally[kRescan];
+    const unsigned long long old =
+        atomicAdd(a.ctr + kRescan * kLine, (1ull << kRowBits) + rows);
+    sh.first = old & kRowMask;
+    sh.final = cap + 1;                     // not the last block
+    if ((old >> kRowBits) == (unsigned long long)gridDim.x * gridDim.y - 1) {
+      const unsigned long long listed = sh.first + rows;
+      a.ctr[kRescan * kLine] = listed;
+      sh.final = min(listed, cap);
+    }
+  }
+  __syncthreads();
+
+  // the rows, placed by the bitmap's prefix sums: a chunk's are consecutive
+  if (sh.tally[kRescan] > 0) {
+    const int words = (width * np + 31) >> 5;
+    unsigned long long at = sh.first;
+    for (int w0 = 0; w0 < words; w0 += kThreads) {
+      const int w = w0 + tid;
+      unsigned bits = w < words ? big[w] : 0u;
+      int total;
+      unsigned long long k = at + block_scan(__popc(bits), sh.scan, total);
+      for (; bits && k < cap; bits &= bits - 1u, ++k) {
+        int ch, slot;
+        chunk_pair(a, w * 32 + __ffs(bits) - 1, np, lo, sclist, ch, slot);
+        const int hq = mhq[slot];
+        const long long lead = (long long)ch * a.chunk;
+        a.rows[kRidx * a.cap_rescan + k] = (long long)k;
+        a.rows[kQ * a.cap_rescan + k] =
+            (long long)__ldg(a.qsig + min(hq, a.n - 1));
+        a.rows[kHq * a.cap_rescan + k] = hq;
+        a.rows[kStart * a.cap_rescan + k] = base + lead;
+        a.rows[kLive * a.cap_rescan + k] = blen - lead;
+        a.rows[kSlice * a.cap_rescan + k] = s;
+      }
+      at += total;
+    }
+  }
+
+  // the 1-2-hit cells scored, with no barrier after them, kSlotRounds
+  // cells a thread at once
+  if (y == 0) {
+    for (int j0 = 0; j0 < a.qb; j0 += kSlotRounds * kThreads) {
+      long long cell[kSlotRounds];
+      int count[kSlotRounds], hq[kSlotRounds];
+#pragma unroll
+      for (int r = 0; r < kSlotRounds; ++r) {
+        const int j = j0 + r * kThreads + tid;
+        cell[r] = total0 + j;
+        count[r] = j < a.qb ? __ldg(a.cnt + cell[r]) : 0;
+        hq[r] = j < a.qb ? min(__ldg(a.qsp + sb * a.qb + j), a.n) : a.n;
+      }
+      score_cells(a, cell, count, hq, base);
+    }
+  }
+  if (walk && nm > 0) {
+    if (a.superchunk) {
+      const int pairs = (hi - lo) * nm;
+      for (int p0 = 0; p0 < pairs; p0 += kSlotRounds * kThreads) {
+        long long cell[kSlotRounds];
+        int count[kSlotRounds], hq[kSlotRounds];
+#pragma unroll
+        for (int r = 0; r < kSlotRounds; ++r) {
+          const int p = p0 + r * kThreads + tid;
+          const int k = p < pairs ? p % nm : 0;
+          cell[r] = cell0 + (long long)(a.nchmax + lo + p / nm) * a.qb +
+                    mslot[k];
+          count[r] = p < pairs ? __ldg(a.cnt + cell[r]) : 0;
+          hq[r] = mhq[k];
+        }
+        score_cells(a, cell, count, hq, base);
+      }
+    }
+    const int pairs = width * np;
+    for (int t0 = 0; t0 < pairs; t0 += kSlotRounds * kThreads) {
+      long long cell[kSlotRounds];
+      int count[kSlotRounds], hq[kSlotRounds];
+#pragma unroll
+      for (int r = 0; r < kSlotRounds; ++r) {
+        const int t = t0 + r * kThreads + tid;
+        int ch = 0, k = 0;
+        if (t < pairs) chunk_pair(a, t, np, lo, sclist, ch, k);
+        cell[r] = cell0 + (long long)ch * a.qb + mslot[k];
+        count[r] = t < pairs && ch < nlive ? __ldg(a.cnt + cell[r]) : 0;
+        hq[r] = mhq[k];
+      }
+      score_cells(a, cell, count, hq, base);
+    }
+  }
+
+  // the last block: the padding rows past the list
+  if (sh.final <= cap) {
+    for (long long i = (long long)sh.final + tid; i < a.cap_rescan;
+         i += kThreads) {
+      a.rows[kRidx * a.cap_rescan + i] = -1;
+      a.rows[kQ * a.cap_rescan + i] = 0;
+      a.rows[kHq * a.cap_rescan + i] = a.n;
+      a.rows[kStart * a.cap_rescan + i] = 0;
+      a.rows[kLive * a.cap_rescan + i] = 0;
+      a.rows[kSlice * a.cap_rescan + i] = 0;
+    }
+  }
 }
 
 }  // namespace
@@ -276,26 +436,45 @@ __global__ void __launch_bounds__(kThreads) decode_tree_kernel(Args a) {
 // C = nchmax + nsc + 1; the slot plan qsp (S, B, qb) int32 (n: padding);
 // qsig (n,) int64; boff (S, B) int64 and blen (S, B) int32; entries (S, epad)
 // int64 and occ (S, epad) int32; mit_tab (2^20,) f32, pen (20, 16) f32. The
-// outputs: counters (6,) int64 and the sums (n + 1,) f64, zeroed by the
-// caller; rows (6, cap_rescan) int64 and multi (cap_multi,) int32 scratch,
-// written here. Two launches, the slot pass then the tree pass.
+// outputs: counters (6, 16) int64 (column 0: the six populations) and the
+// sums (n + 1,) f64, zeroed by the caller; rows (6, cap_rescan) int64,
+// written here. One launch.
 extern "C" int crackling_compact_decode(
     const void* cnt, const void* rmin, const void* rmax, const void* qsp,
     const void* qsig, const void* boff, const void* blen, const void* entries,
     const void* occ, const void* mit_tab, const void* pen, float pam, int S,
     int B, int C, int qb, int n, long long epad, int nchmax, int nsc,
-    int superchunk, int chunk, long long cap_multi, long long cap_rescan,
-    void* multi, void* counters, void* mit_sums, void* cfd_sums, void* rows,
-    int device, void* stream) {
+    int superchunk, int chunk, long long cap_rescan, void* counters,
+    void* mit_sums, void* cfd_sums, void* rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long slots = (long long)S * B * qb;
-  if (S < 1 || B < 1 || qb < 1 || n < 1 || nchmax < 1 || nsc < 0 ||
-      superchunk < 0 || (superchunk > 0) != (nsc > 0) ||
-      C != nchmax + nsc + 1 || chunk < 1 || cap_multi < 0 ||
-      cap_rescan < 0 || slots > 0x7FFFFFFFll || cap_multi > 0x7FFFFFFFll ||
-      cap_rescan > 0x7FFFFFFFll)
+  if (S < 1 || B < 1 || qb < 1 || qb > 0xFFFF || n < 1 || nchmax < 1 ||
+      nsc < 0 || nsc > 0x7FFF || superchunk < 0 ||
+      (superchunk > 0) != (nsc > 0) || C != nchmax + nsc + 1 || chunk < 1 ||
+      cap_rescan < 0 || (long long)S * B * qb > 0x7FFFFFFFll ||
+      (long long)S * B > 0x7FFFFFFFll || cap_rescan > 0x7FFFFFFFll)
     return (int)cudaErrorInvalidValue;
+  // a block walks kChunksPerBlock chunk cells, or whole superchunks
+  const int per_block =
+      superchunk ? (kChunksPerBlock / superchunk > 1
+                        ? kChunksPerBlock / superchunk : 1)
+                 : kChunksPerBlock;
+  const int walked = superchunk ? nsc : nchmax;
+  const long long lcap = superchunk ? (long long)per_block * qb : 0;
+  const long long pairs =
+      (long long)(superchunk ? superchunk : 1) * per_block * qb;
+  const long long smem = 4 * (2ll * qb + lcap + (pairs + 31) / 32);
+  const long long blocks =
+      (long long)S * B * ((walked + per_block - 1) / per_block);
+  if (smem > kMaxShared || blocks >= (1ll << (64 - kRowBits)) ||
+      (long long)S * B * qb * nchmax > (long long)kRowMask)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(decode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   Args a;
   a.cnt = static_cast<const int*>(cnt);
   a.rmin = static_cast<const int*>(rmin);
@@ -318,21 +497,15 @@ extern "C" int crackling_compact_decode(
   a.nsc = nsc;
   a.superchunk = superchunk;
   a.chunk = chunk;
-  a.slots = slots;
-  a.cap_multi = cap_multi;
+  a.per_block = per_block;
+  a.lcap = (int)lcap;
   a.cap_rescan = cap_rescan;
-  a.multi = static_cast<int*>(multi);
   a.ctr = static_cast<unsigned long long*>(counters);
   a.mit_sums = static_cast<double*>(mit_sums);
   a.cfd_sums = static_cast<double*>(cfd_sums);
   a.rows = static_cast<long long*>(rows);
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long threads = slots > cap_rescan ? slots : cap_rescan;
-  decode_slots_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads),
-                        kThreads, 0, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || cap_multi == 0) return (int)err;
-  decode_tree_kernel<<<(unsigned)((cap_multi + kWarps - 1) / kWarps),
-                       kThreads, 0, st>>>(a);
+  const dim3 grid((unsigned)(S * B), (unsigned)((walked + per_block - 1) /
+                                                 per_block));
+  decode_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -31,9 +31,10 @@ Two implementations of the same function:
 
 * :func:`compact_decode` — the wrapper. On a CUDA tensor it launches the
   hand-written Hopper kernel ``csrc/compact_decode.cu`` (built with nvcc
-  at first use, bound with ctypes; a slot pass and a tree pass, no host
-  sync); on a CPU tensor it runs the plain version. Nothing else: no
-  fallback from one to the other.
+  at first use, bound with ctypes; one launch, a block per bucket, no
+  host sync, the rows of one chunk consecutive in the list); on a CPU
+  tensor it runs the plain version. Nothing else: no fallback from one
+  to the other.
 * :func:`compact_decode_plain` — plain PyTorch, each level's cells
   compacted at its cap (:func:`compact_indices`) and scored in batches;
   the CPU tests' engine and the reference the kernel is held to on the
@@ -128,8 +129,8 @@ def _bind(lib):
         p, p, f,              # mit table, penalties, pam
         i, i, i, i, i, ll,    # S, B, C, qb, n, epad
         i, i, i, i,           # nchmax, nsc, superchunk, chunk
-        ll, ll,               # cap_multi, cap_rescan
-        p, p, p, p, p,        # multi, counters, mit_sums, cfd_sums, rows
+        ll,                   # cap_rescan
+        p, p, p, p,           # counters, mit_sums, cfd_sums, rows
         i, p]                 # device, stream
 
 
@@ -148,8 +149,8 @@ def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
     starts and lengths within a row of entries (S, epad) int64 and occ
     (S, epad) int32; ``chunk`` entries per chunk cell, ``superchunk``
     chunks per superchunk cell (0: no such level); the seven caps (the
-    kernel reads caps[1], the >=3-hit slots it lists, and caps[5], the
-    rows). A CUDA tensor launches the kernel (counted in
+    kernel reads caps[5], the rows; it counts every population and writes
+    nothing else that a cap bounds). A CUDA tensor launches the kernel (counted in
     ``compact_decode.launches``); a CPU tensor runs
     :func:`compact_decode_plain` (``trim`` cuts its compactions to their
     populations)."""
@@ -164,15 +165,15 @@ def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
         raise ValueError(f"no compact decode for device {dev}")
     n = q_sig.numel()
     S, B, C, qb = fo.cnt.shape
-    cap_multi, cap_rescan = int(caps[1]), int(caps[5])
-    pops = torch.zeros(6, dtype=torch.int64, device=dev)
+    cap_rescan = int(caps[5])
+    # the six populations in column 0, one 128-B line each
+    counters = torch.zeros((6, 16), dtype=torch.int64, device=dev)
     sums = torch.zeros((2, n + 1), dtype=torch.float64, device=dev)
     rows = torch.empty((6, cap_rescan), dtype=torch.int64, device=dev)
-    multi = torch.empty(cap_multi, dtype=torch.int32, device=dev)
     lib = KERNEL.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # one span for both passes: the plain version's compact.decode.direct
-    # and compact.decode.tree spans are steps 1 and 2 apart
+    # one span for steps 1 and 2: the plain version's compact.decode.direct
+    # and compact.decode.tree spans are apart
     with record_function("compact.decode.direct_tree"):
         rc = lib.crackling_compact_decode(
             fo.cnt.data_ptr(), fo.rmin.data_ptr(), fo.rmax.data_ptr(),
@@ -180,14 +181,15 @@ def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
             blen.data_ptr(), entries.data_ptr(), occ.data_ptr(),
             tabs.mit.data_ptr(), tabs.pen.data_ptr(), tabs.pam, S, B, C, qb,
             n, entries.shape[1], fo.nchmax, fo.nsc, superchunk, chunk,
-            cap_multi, cap_rescan, multi.data_ptr(), pops.data_ptr(),
-            sums[0].data_ptr(), sums[1].data_ptr(), rows.data_ptr(),
+            cap_rescan, counters.data_ptr(), sums[0].data_ptr(),
+            sums[1].data_ptr(), rows.data_ptr(),
             dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"compact decode kernel launch failed: CUDA "
                            f"error {rc}")
     compact_decode.launches += 1
-    return Decoded(pops, sums[0], sums[1], RescanRows(*rows.unbind(0)))
+    return Decoded(counters[:, 0], sums[0], sums[1],
+                   RescanRows(*rows.unbind(0)))
 
 
 compact_decode.launches = 0

@@ -21,9 +21,12 @@ Two implementations of the same function:
 
 * :func:`compact_rescan` — the wrapper. On a CUDA tensor it launches the
   hand-written Hopper kernel ``csrc/compact_rescan.cu`` (built with nvcc
-  at first use, bound with ctypes), once for the whole list; on a CPU
-  tensor it runs the plain version. Nothing else: no fallback from one
-  to the other.
+  at first use, bound with ctypes), once for the whole list: the blocks
+  of consecutive rows of one chunk (the decode lists them so; at most 8)
+  split the chunk, each screening its part against all their queries, so
+  the chunk is read once; a list in any order stays correct. On a CPU
+  tensor it runs the plain version. Nothing else: no fallback from one to
+  the other.
 * :func:`compact_rescan_plain` — plain PyTorch, every (row, column) pair
   evaluated elementwise in blocks of ``rescan_block`` rows and row-summed;
   the CPU tests' engine and the reference the kernel is held to on the

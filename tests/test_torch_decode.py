@@ -13,9 +13,12 @@ summed in f64 in another order). The index is made with numpy from a seed:
 a bucket of ~3,000 sites (3 chunks of 1,024, so with ``superchunk`` 2 the
 last superchunk overhangs) whose clusters give 1-2-hit and >=3-hit cells at
 every level, single hits elsewhere, absent queries and padding slots. A cap
-below its population at any level must flag the page. The wrapper on CPU
+below its population at any level must flag the page. The plain version's
+rows, sorted so that each chunk's are consecutive (the kernel's order),
+give the same steps 1-3 sums as its own order. The wrapper on CPU
 tensors runs the plain version; on the card it launches the kernel, held
-to the plain version (tests marked ``cuda``, skipped without a card).
+to the plain version, its rows of each chunk consecutive (tests marked
+``cuda``, skipped without a card).
 ``test_torch_compact.py::test_compact_matches_jax`` holds the decode, inside
 the scorer, to the JAX engine.
 """
@@ -26,6 +29,8 @@ import torch
 
 from crackling_tpu_torch.index import build_index
 from crackling_tpu_torch.ops import compact_decode as cd
+from crackling_tpu_torch.ops.compact_rescan import (RescanRows,
+                                                    compact_rescan_plain)
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer, plan_slots
 from crackling_tpu_torch.ops.oracle import _cfd_one, collapse_mismatches
 from crackling_tpu_torch.ops.tables import (CFD_PAM_NGG_INDEX,
@@ -213,6 +218,44 @@ def test_plain_decode_matches_numpy_walk(world, max_dist, superchunk):
             assert pops[2] > pops[3] > 0
 
 
+def _runs(rows):
+    """(runs, distinct): the runs of equal start among a list's live rows,
+    in list order, and their distinct starts; equal when the rows of each
+    chunk are consecutive."""
+    starts = rows.start[rows.ridx >= 0].tolist()
+    runs = sum(1 for i, st in enumerate(starts) if i == 0
+               or st != starts[i - 1])
+    return runs, len(set(starts))
+
+
+def _steps_1_3(sc, q, d, rows):
+    """The page's sums after steps 1-3: the decode's, and the plain rescan
+    of ``rows`` added to them."""
+    mit, cfd = d.mit_sums.clone(), d.cfd_sums.clone()
+    compact_rescan_plain(rows, sc.entries.reshape(-1), sc.occ.reshape(-1),
+                         sc.tables, mit, cfd, n=q.numel(),
+                         scan_width=sc._scan_width, max_dist=sc.max_dist)
+    return mit, cfd
+
+
+@pytest.mark.parametrize("superchunk", [0, 2])
+@pytest.mark.parametrize("max_dist", [2, 4])
+def test_rows_grouped_by_chunk_give_the_same_sums(world, max_dist,
+                                                  superchunk):
+    sc, q, qsp, fo = _page(world, max_dist, superchunk)
+    d = _decode(cd.compact_decode_plain, sc, q, qsp, fo)
+    runs, distinct = _runs(d.rows)
+    # the plain version lists a slot's chunks together, so a chunk's rows
+    # are apart; the kernel lists them together
+    assert runs > distinct > 0
+    order = torch.sort(d.rows.start, stable=True).indices
+    grouped = RescanRows(*(t[order] for t in d.rows))
+    assert _runs(grouped) == (distinct, distinct)
+    for g, w in zip(_steps_1_3(sc, q, d, grouped),
+                    _steps_1_3(sc, q, d, d.rows)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
+
+
 @pytest.mark.parametrize("level", range(6))
 def test_a_cap_below_its_population_flags_the_page(world, level):
     sc, q, qsp, fo = _page(world, 4, 2)
@@ -277,6 +320,23 @@ def test_kernel_matches_plain_version_on_the_card(world, max_dist,
     for g, w in ((got.mit_sums, want.mit_sums),
                  (got.cfd_sums, want.cfd_sums)):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_dist,superchunk", [(4, 0), (4, 2), (2, 2)])
+def test_kernel_lists_the_rows_of_a_chunk_together_on_the_card(
+        world, max_dist, superchunk):
+    _on_card()
+    sc, q, qsp, fo = _page(world, max_dist, superchunk, "cuda")
+    got = _decode(cd.compact_decode, sc, q, qsp, fo)
+    torch.cuda.synchronize()
+    runs, distinct = _runs(got.rows)
+    assert runs == distinct > 0
+    live = int(min(got.pops[5], WIDE[5]))
+    assert torch.equal(got.rows.ridx[:live].cpu(), torch.arange(live))
+    pad = got.rows.ridx[live:]
+    assert bool((pad == -1).all()) and bool((got.rows.hq[live:]
+                                             == q.numel()).all())
 
 
 @pytest.mark.cuda

@@ -12,9 +12,14 @@ another order.
 The rows are made with numpy from a seed and hold every case the decode
 can give: padding rows (ridx -1), rows whose query is ``n``, columns past
 the live length, distance-0 pairs, pairs clean in an earlier slice, and a
-list longer than the plain version's row block. The wrapper on CPU
-tensors runs the plain version; on the card it launches the kernel, held
-to the plain version (a test marked ``cuda``, skipped without a card).
+list longer than the plain version's row block. A list in the decode's
+order (the rows of one chunk consecutive) gives the plain version the
+same sums as a shuffled copy of it. The wrapper on CPU tensors runs the
+plain version; on the card it launches the kernel, whose blocks of one
+run of rows sharing a chunk (cut at every 8th row) split the chunk among
+them and screen each part against all the run's queries, held to the
+plain version on both lists (tests marked ``cuda``, skipped without a
+card).
 ``test_torch_compact.py::test_compact_matches_jax`` holds the decode that
 builds the rows, and so the rescan inside it, to the JAX engine.
 """
@@ -112,7 +117,7 @@ def _brute(ents, occ, rows, max_dist):
     cfd = np.zeros(N + 1)
     seen = dict(hits=0, dist0=0, earlier_clean=0, past_live=0, at_live=0,
                 padding=0, query_n=0)
-    for r in range(ROWS):
+    for r in range(len(rows["ridx"])):
         if rows["ridx"][r] < 0:
             seen["padding"] += 1
             continue
@@ -205,6 +210,67 @@ def test_wrapper_refuses_bad_inputs(fault):
                           cfd, n=N, scan_width=SCAN_WIDTH, max_dist=4)
 
 
+def _grouped_world(seed=9):
+    """The entries of :func:`_world` and a rescan list in the decode's
+    order: each of 7 chunks (start, live length, slice 0) read by a run of
+    consecutive rows, one query each (1 to 11 rows: one run longer than
+    the kernel's segments of at most 8 rows), with a padding row and a
+    row of query N inside runs (they break them), and padding at the end.
+    Each row's chunk holds its query itself and near copies (1-4 mutated
+    positions) below the live length."""
+    ents, occ, _ = _world()
+    rng = np.random.default_rng(seed)
+    queries = rng.integers(0, 1 << 40, N)
+    fields = {f: [] for f in cr.RescanRows._fields}
+    for k, size in enumerate([1, 3, 2, 11, 4, 5, 3]):
+        start = int(rng.integers(0, ENTRIES - SCAN_WIDTH))
+        live = int(rng.integers(SCAN_WIDTH // 2, SCAN_WIDTH + 50))
+        for i in range(size):
+            hq = int(rng.integers(0, N))
+            ridx = len(fields["ridx"])
+            if (k, i) == (4, 2):
+                ridx = -1
+            elif (k, i) == (5, 1):
+                hq = N
+            else:
+                at = start + rng.choice(min(live, SCAN_WIDTH), 4,
+                                        replace=False)
+                for a, m in zip(at, range(4)):
+                    ents[a] = _mutate(rng, int(queries[hq]),
+                                      rng.choice(20, m, replace=False))
+            for f, v in zip(cr.RescanRows._fields,
+                            (ridx, int(queries[min(hq, N - 1)]), hq, start,
+                             live, 0)):
+                fields[f].append(v)
+    for _ in range(3):
+        for f, v in zip(cr.RescanRows._fields, (-1, 0, N, 0, 0, 0)):
+            fields[f].append(v)
+    return ents, occ, {f: np.array(v, dtype=np.int64)
+                       for f, v in fields.items()}
+
+
+def _shuffled(rows, seed=4):
+    perm = np.random.default_rng(seed).permutation(len(rows["ridx"]))
+    return {f: v[perm] for f, v in rows.items()}
+
+
+@pytest.mark.parametrize("max_dist", [0, 2, 4])
+def test_plain_rescan_sums_do_not_depend_on_row_order(max_dist):
+    ents, occ, rows = _grouped_world()
+    tabs = score_tables(max_dist, "cpu")
+    kw = dict(n=N, scan_width=SCAN_WIDTH, max_dist=max_dist,
+              rescan_block=BLOCK)
+    want_mit, want_cfd, seen = _brute(ents, occ, rows, max_dist)
+    assert seen["hits"] > 0 and seen["padding"] > 0 and seen["query_n"] > 0
+    grouped, shuffled = _sums(), _sums()
+    for order, sums in ((rows, grouped), (_shuffled(rows), shuffled)):
+        cr.compact_rescan_plain(*_tensors(ents, occ, order), tabs, *sums,
+                                **kw)
+    for g, w, want in zip(grouped, shuffled, (want_mit, want_cfd)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-12, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_dist", [0, 2, 4])
 def test_kernel_matches_plain_version_on_the_card(max_dist):
@@ -221,5 +287,27 @@ def test_kernel_matches_plain_version_on_the_card(max_dist):
     cr.compact_rescan(t_rows, t_ents, t_occ, tabs, *got, **kw)
     torch.cuda.synchronize()
     assert cr.compact_rescan.launches == launches + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["grouped", "shuffled"])
+@pytest.mark.parametrize("max_dist", [0, 4])
+def test_kernel_matches_plain_version_on_chunk_runs_on_the_card(max_dist,
+                                                                order):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    ents, occ, rows = _grouped_world()
+    if order == "shuffled":
+        rows = _shuffled(rows)
+    t_rows, t_ents, t_occ = _tensors(ents, occ, rows, "cuda")
+    tabs = score_tables(max_dist, "cuda")
+    kw = dict(n=N, scan_width=SCAN_WIDTH, max_dist=max_dist)
+    want = _sums("cuda")
+    cr.compact_rescan_plain(t_rows, t_ents, t_occ, tabs, *want, **kw)
+    got = _sums("cuda")
+    cr.compact_rescan(t_rows, t_ents, t_occ, tabs, *got, **kw)
+    torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
