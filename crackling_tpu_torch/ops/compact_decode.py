@@ -50,8 +50,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from .compact_finder import FinderOut, superchunk_cells
 from .compact_rescan import RescanRows, ScoreTables, check_tensors, \
     pair_scores
@@ -172,9 +172,7 @@ def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
     rows = torch.empty((6, cap_rescan), dtype=torch.int64, device=dev)
     lib = KERNEL.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # one span for steps 1 and 2: the plain version's compact.decode.direct
-    # and compact.decode.tree spans are apart
-    with record_function("compact.decode.direct_tree"):
+    with trace.span("compact.decode.direct_tree"):
         rc = lib.crackling_compact_decode(
             fo.cnt.data_ptr(), fo.rmin.data_ptr(), fo.rmax.data_ptr(),
             qsp.data_ptr(), q_sig.data_ptr(), boff.data_ptr(),
@@ -253,92 +251,89 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
 
     # 1) direct slots: 1-2 hits in the whole bucket resolve from the
     # bucket totals alone
-    with record_function("compact.decode.direct"):
-        tot = fo.total_cell
-        slot_cnt = fo.cnt[:, :, tot, :].reshape(-1)
-        direct = (slot_cnt == 1) | (slot_cnt == 2)
-        n1 = direct.sum()
-        sidx = compact_indices(direct, cap1, trim)
-        si = sidx.clamp(min=0)
-        v1 = sidx >= 0
-        cidx = cell_at(si, tot)
-        add_direct(si, torch.where(v1, slot_cnt[si], 0), min_f[cidx],
-                   max_f[cidx], v1)
+    tot = fo.total_cell
+    slot_cnt = fo.cnt[:, :, tot, :].reshape(-1)
+    direct = (slot_cnt == 1) | (slot_cnt == 2)
+    n1 = direct.sum()
+    sidx = compact_indices(direct, cap1, trim)
+    si = sidx.clamp(min=0)
+    v1 = sidx >= 0
+    cidx = cell_at(si, tot)
+    add_direct(si, torch.where(v1, slot_cnt[si], 0), min_f[cidx],
+               max_f[cidx], v1)
 
     # 2) >=3-hit slots expand down the moment tree: with the superchunk
     # level, into their superchunk cells (1-2 hit cells resolve there,
     # >=3-hit ones expand into their chunks); without it, straight into
     # their chunk cells. 1-2 hit chunk cells resolve pointwise.
-    with record_function("compact.decode.tree"):
-        multi = slot_cnt >= 3
-        nm = multi.sum()
-        midx = compact_indices(multi, capm, trim)
-        mi = midx.clamp(min=0)
-        vm = (midx >= 0)[:, None]
-        n_sc = n_sr = torch.zeros((), dtype=torch.int64, device=dev)
-        if superchunk:
-            cells = nchmax + torch.arange(nsc, device=dev)
-            msc = torch.where(
-                vm, cnt_f[cell_at(mi[:, None], cells[None, :])], 0)
-            n_sc = (msc > 0).sum()
-            scz = compact_indices((msc > 0).reshape(-1), capsc, trim)
-            szi = scz.clamp(min=0)
-            vsz = scz >= 0
-            s_sc = szi % nsc
-            sslot = mi[szi // nsc]
-            scnt = msc.reshape(-1)[szi]
-            cidx = cell_at(sslot, nchmax + s_sc)
-            add_direct(sslot, torch.where(vsz, scnt, 0), min_f[cidx],
-                       max_f[cidx], vsz)
-            c2sc = vsz & (scnt >= 3)
-            n_sr = c2sc.sum()
-            sridx = compact_indices(c2sc, capsr, trim)
-            sri = sridx.clamp(min=0)
-            src_slot = sslot[sri]
-            ch = (s_sc[sri][:, None] * superchunk
-                  + torch.arange(superchunk, device=dev)[None, :])
-            live = (sridx >= 0)[:, None] & (ch < nchmax)
-            cidx = cell_at(src_slot[:, None], ch.clamp(max=nchmax - 1))
-            mc = torch.where(live, cnt_f[cidx], 0)
-            width = superchunk
-            ch_flat = ch.reshape(-1)
+    multi = slot_cnt >= 3
+    nm = multi.sum()
+    midx = compact_indices(multi, capm, trim)
+    mi = midx.clamp(min=0)
+    vm = (midx >= 0)[:, None]
+    n_sc = n_sr = torch.zeros((), dtype=torch.int64, device=dev)
+    if superchunk:
+        cells = nchmax + torch.arange(nsc, device=dev)
+        msc = torch.where(
+            vm, cnt_f[cell_at(mi[:, None], cells[None, :])], 0)
+        n_sc = (msc > 0).sum()
+        scz = compact_indices((msc > 0).reshape(-1), capsc, trim)
+        szi = scz.clamp(min=0)
+        vsz = scz >= 0
+        s_sc = szi % nsc
+        sslot = mi[szi // nsc]
+        scnt = msc.reshape(-1)[szi]
+        cidx = cell_at(sslot, nchmax + s_sc)
+        add_direct(sslot, torch.where(vsz, scnt, 0), min_f[cidx],
+                   max_f[cidx], vsz)
+        c2sc = vsz & (scnt >= 3)
+        n_sr = c2sc.sum()
+        sridx = compact_indices(c2sc, capsr, trim)
+        sri = sridx.clamp(min=0)
+        src_slot = sslot[sri]
+        ch = (s_sc[sri][:, None] * superchunk
+              + torch.arange(superchunk, device=dev)[None, :])
+        live = (sridx >= 0)[:, None] & (ch < nchmax)
+        cidx = cell_at(src_slot[:, None], ch.clamp(max=nchmax - 1))
+        mc = torch.where(live, cnt_f[cidx], 0)
+        width = superchunk
+        ch_flat = ch.reshape(-1)
 
-            def chunk_of(z):
-                return ch_flat[z]
-        else:
-            chj = torch.arange(nchmax, device=dev)
-            mc = torch.where(
-                vm, cnt_f[cell_at(mi[:, None], chj[None, :])], 0)
-            src_slot = mi
-            width = nchmax
+        def chunk_of(z):
+            return ch_flat[z]
+    else:
+        chj = torch.arange(nchmax, device=dev)
+        mc = torch.where(
+            vm, cnt_f[cell_at(mi[:, None], chj[None, :])], 0)
+        src_slot = mi
+        width = nchmax
 
-            def chunk_of(z):
-                return z % nchmax
-        nc = (mc > 0).sum()
-        mz = compact_indices((mc > 0).reshape(-1), capm2, trim)
-        mzc = mz.clamp(min=0)
-        vz = mz >= 0
-        mslot = src_slot[mzc // width]
-        mchk = chunk_of(mzc)
-        mcnt = mc.reshape(-1)[mzc]
-        cidx = cell_at(mslot, mchk)
-        add_direct(mslot, torch.where(vz, mcnt, 0), min_f[cidx],
-                   max_f[cidx], vz)
+        def chunk_of(z):
+            return z % nchmax
+    nc = (mc > 0).sum()
+    mz = compact_indices((mc > 0).reshape(-1), capm2, trim)
+    mzc = mz.clamp(min=0)
+    vz = mz >= 0
+    mslot = src_slot[mzc // width]
+    mchk = chunk_of(mzc)
+    mcnt = mc.reshape(-1)[mzc]
+    cidx = cell_at(mslot, mchk)
+    add_direct(mslot, torch.where(vz, mcnt, 0), min_f[cidx],
+               max_f[cidx], vz)
 
     # 3) >=3-hit chunks: the rescan list, one row per chunk
-    with record_function("compact.decode.rescan"):
-        c2 = vz & (mcnt >= 3)
-        n2c = c2.sum()
-        ridx = compact_indices(c2, capr, trim)
-        ri = ridx.clamp(min=0)
-        rslot = mslot[ri]
-        first = mchk[ri] * chunk
-        sb = rslot // qb
-        rs = sb // B
-        hq = q_of(rslot)
-        rows = RescanRows(ridx, q_sig[hq.clamp(max=n - 1)], hq,
-                          rs * epad + boff_f[sb] + first,
-                          blen_f[sb] - first, rs)
+    c2 = vz & (mcnt >= 3)
+    n2c = c2.sum()
+    ridx = compact_indices(c2, capr, trim)
+    ri = ridx.clamp(min=0)
+    rslot = mslot[ri]
+    first = mchk[ri] * chunk
+    sb = rslot // qb
+    rs = sb // B
+    hq = q_of(rslot)
+    rows = RescanRows(ridx, q_sig[hq.clamp(max=n - 1)], hq,
+                      rs * epad + boff_f[sb] + first,
+                      blen_f[sb] - first, rs)
     return Decoded(torch.stack([n1, nm, n_sc, n_sr, nc, n2c]), mit_sums,
                    cfd_sums, rows)
 

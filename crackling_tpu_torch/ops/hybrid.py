@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..index.build import IsslIndex
 
 
@@ -153,8 +154,11 @@ class HybridIsslScorer:
         mit, cfd = self.dense.score(sigs)
         near = self._near_threshold(mit, cfd)
         self.last_rescored = int(near.sum())   # diagnostics / perf studies
+        trace.count("hybrid.guides", sigs.shape[0])
+        trace.count("hybrid.rescored", self.last_rescored)
         if near.any():
-            em, ec = self._get_exact().score(sigs[near])
+            with trace.span("mxu.rescore"):
+                em, ec = self._get_exact().score(sigs[near])
             mit[near] = em
             cfd[near] = ec
         return mit, cfd

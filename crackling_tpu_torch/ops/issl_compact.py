@@ -39,8 +39,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex
 from ..pipeline.logger import printer
@@ -169,7 +169,7 @@ def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
     d = compact_decode(q_sig, qsp, fo, boff, blen, entries, occ,
                        chunk=chunk, superchunk=superchunk, caps=caps,
                        tabs=tabs, trim=trim)
-    with record_function("compact.decode.rescan"):
+    with trace.span("compact.decode.rescan"):
         compact_rescan(d.rows, entries.reshape(-1), occ.reshape(-1), tabs,
                        d.mit_sums, d.cfd_sums, n=n, scan_width=scan_width,
                        max_dist=max_dist, rescan_block=rescan_block)
@@ -241,9 +241,12 @@ class CompactIsslScorer:
         # (entries past a bucket's end never hit)
         self._scan_width = min(self.chunk, max(64, -(-maxblen // 64) * 64))
 
-        (self.entries, self.occ, self.bucket_offsets,
-         self.bucket_lens) = aligned_lists(index, self.device, self.chunk)
-        self.tables = score_tables(self.max_dist, self.device)
+        with trace.span("compact.build.lists"):
+            (self.entries, self.occ, self.bucket_offsets,
+             self.bucket_lens) = aligned_lists(index, self.device,
+                                               self.chunk)
+        with trace.span("compact.build.tables"):
+            self.tables = score_tables(self.max_dist, self.device)
         self.onehot = self._want_onehot(onehot)
         # the one-hot finder's input, built once; the decode still gathers
         # the packed entries
@@ -340,17 +343,30 @@ class CompactIsslScorer:
     def run_page(self, page: np.ndarray, qb: int):
         """The whole page program, enqueued: (header, mit_sums,
         cfd_sums) device tensors."""
-        q_sig = self.query_tensor(page)
-        with record_function("compact.plan"):
-            qsp = plan_slots(q_sig, self.S, self.B, qb)
-        return self.decode(q_sig, qsp, self.finder(q_sig, qsp))
+        with trace.span("compact.enqueue"):
+            q_sig = self.query_tensor(page)
+            with trace.span("compact.plan"):
+                qsp = plan_slots(q_sig, self.S, self.B, qb)
+            with trace.span("compact.finder"):
+                fo = self.finder(q_sig, qsp)
+            return self.decode(q_sig, qsp, fo)
+
+    @staticmethod
+    def trace_session() -> trace.Session:
+        """The tracer's session (:mod:`crackling_tpu_torch.trace`): the
+        page path's spans and counters since tracing last turned on."""
+        return trace.session()
 
     # -- public API --------------------------------------------------------
 
     def _dispatch(self, lo_idx, page, pending):
-        qb, _need = plan_query_occupancy(
-            page, self.S, self.B, self.index.slice_width, self.qb_cap)
+        # the span sits here: the dense engine shares plan_query_occupancy
+        with trace.span("compact.occupancy"):
+            qb, _need = plan_query_occupancy(
+                page, self.S, self.B, self.index.slice_width, self.qb_cap)
+        trace.count("compact.occupancy_calls")
         if qb is None:
+            trace.count("compact.splits")
             half = page.shape[0] // 2
             if half == 0:
                 raise RuntimeError("query bucket overflow; raise qb_cap")
@@ -362,42 +378,49 @@ class CompactIsslScorer:
         # ran under the old smaller caps must still be checked against
         # those (its compaction truncated at them)
         pending.append((lo_idx, page, self._caps(), self.run_page(page, qb)))
+        trace.count("compact.pages")
 
     def _run_pages(self, pages, out_mit, out_cfd):
         pending = []
         for lo_idx, page in pages:
-            self._dispatch(lo_idx, page, pending)
+            with trace.span("compact.dispatch"):
+                self._dispatch(lo_idx, page, pending)
         # drain after every page is enqueued; overflowed pages grow their
         # caps and retry (auto mode) or split in half (explicit caps)
         while pending:
             retry = []
             for lo_idx, page, ran_caps, (header, m, c) in pending:
-                pops = tuple(int(x) for x in header.cpu())
-                self.page_stats.append(pops)
-                if any(p > cap for p, cap in zip(pops, ran_caps)):
-                    if self._auto:
-                        self._set_caps(tuple(
-                            _quant_cap(p) if p > cap else cap
-                            for p, cap in zip(pops, self._caps())))
-                        retry.append((lo_idx, page, False))
-                    else:
-                        if page.shape[0] < 2:
-                            raise RuntimeError(
-                                "hit compaction overflow on a single "
-                                "query; raise nz_cap")
-                        retry.append((lo_idx, page, True))
-                    continue
-                ln = page.shape[0]
-                out_mit[lo_idx:lo_idx + ln] = m.cpu().numpy()
-                out_cfd[lo_idx:lo_idx + ln] = c.cpu().numpy()
+                with trace.span("compact.drain"):
+                    with trace.span("compact.drain.wait"):
+                        header = header.cpu()
+                    pops = tuple(int(x) for x in header)
+                    self.page_stats.append(pops)
+                    if any(p > cap for p, cap in zip(pops, ran_caps)):
+                        trace.count("compact.retries")
+                        if self._auto:
+                            self._set_caps(tuple(
+                                _quant_cap(p) if p > cap else cap
+                                for p, cap in zip(pops, self._caps())))
+                            retry.append((lo_idx, page, False))
+                        else:
+                            if page.shape[0] < 2:
+                                raise RuntimeError(
+                                    "hit compaction overflow on a single "
+                                    "query; raise nz_cap")
+                            retry.append((lo_idx, page, True))
+                        continue
+                    ln = page.shape[0]
+                    out_mit[lo_idx:lo_idx + ln] = m.cpu().numpy()
+                    out_cfd[lo_idx:lo_idx + ln] = c.cpu().numpy()
             pending = []
             for lo_idx, page, split in retry:
-                if split:
-                    half = page.shape[0] // 2
-                    self._dispatch(lo_idx, page[:half], pending)
-                    self._dispatch(lo_idx + half, page[half:], pending)
-                else:
-                    self._dispatch(lo_idx, page, pending)
+                with trace.span("compact.dispatch"):
+                    if split:
+                        half = page.shape[0] // 2
+                        self._dispatch(lo_idx, page[:half], pending)
+                        self._dispatch(lo_idx + half, page[half:], pending)
+                    else:
+                        self._dispatch(lo_idx, page, pending)
 
     def score_sums(self, query_sigs: np.ndarray):
         """Per-query full-scan MIT and CFD sums (f64 numpy)."""
@@ -407,15 +430,17 @@ class CompactIsslScorer:
         out_cfd = np.zeros(n, dtype=np.float64)
         pages = [(i, sigs[i:i + self.query_page])
                  for i in range(0, n, self.query_page)]
-        if self._auto and not self._tuned and pages:
-            # run the first page at the generous defaults, then shrink
-            # every cap to ~1.25x its measured population before the rest
-            self._run_pages(pages[:1], out_mit, out_cfd)
-            self._set_caps(tuple(
-                _quant_cap(p) for p in self.page_stats[-1]))
-            self._tuned = True
-            pages = pages[1:]
-        self._run_pages(pages, out_mit, out_cfd)
+        with trace.span("compact.score"):
+            if self._auto and not self._tuned and pages:
+                # run the first page at the generous defaults, then shrink
+                # every cap to ~1.25x its measured population before the
+                # rest
+                self._run_pages(pages[:1], out_mit, out_cfd)
+                self._set_caps(tuple(
+                    _quant_cap(p) for p in self.page_stats[-1]))
+                self._tuned = True
+                pages = pages[1:]
+            self._run_pages(pages, out_mit, out_cfd)
         return out_mit, out_cfd
 
     def score(self, query_sigs: np.ndarray):

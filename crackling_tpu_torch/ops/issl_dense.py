@@ -31,8 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..device import resolve_device
 from ..index.build import IsslIndex
 from .fullscan import dense_scan
@@ -51,7 +51,7 @@ def dense_page(entries: torch.Tensor, occ: torch.Tensor, boff: torch.Tensor,
     n = q_sig.numel()
     mit_slots, cfd_slots = dense_scan(entries, occ, boff, blen, q_sig, qsp,
                                       max_dist=max_dist, tabs=tabs)
-    with record_function("dense.scatter"):
+    with trace.span("dense.scatter"):
         ids = qsp.reshape(-1).long()
         mit = torch.zeros(n + 1, dtype=torch.float64, device=q_sig.device)
         cfd = torch.zeros(n + 1, dtype=torch.float64, device=q_sig.device)
@@ -101,7 +101,7 @@ class DenseIsslScorer:
             device=self.device)
 
     def plan(self, q_sig: torch.Tensor, qb: int) -> torch.Tensor:
-        with record_function("dense.plan"):
+        with trace.span("dense.plan"):
             return plan_slots(q_sig, self.S, self.B, qb)
 
     def run_page(self, page: np.ndarray, qb: int):

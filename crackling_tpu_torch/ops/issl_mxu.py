@@ -32,8 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..codec import popcount64
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex, _lofirst_to_lex
@@ -93,7 +93,7 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
         return order_f[s * N + uoff_f[s * (B + 1) + b] + k].long()
 
     # 1) single-neighbour slots: the rank sum IS the in-bucket rank
-    with record_function("mxu.decode.single"):
+    with trace.span("mxu.decode.single"):
         slot_cnt = planes.cnt.sum(2, dtype=torch.int64).reshape(-1)
         slot_pos = planes.rsum.sum(2).reshape(-1)
         one = slot_cnt == 1
@@ -107,7 +107,7 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
 
     # 2) multi-neighbour slots -> their nonzero segment cells; a
     # single-neighbour segment pins its rank
-    with record_function("mxu.decode.multi"):
+    with trace.span("mxu.decode.multi"):
         multi = slot_cnt >= 2
         nm = multi.sum()
         midx = compact_indices(multi, capm, trim)
@@ -133,7 +133,7 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
 
     # 3) multi-neighbour segments: rescan their <= segw entries, in blocks
     # of RESCAN_BLOCK segments
-    with record_function("mxu.decode.rescan"):
+    with trace.span("mxu.decode.rescan"):
         c2 = vz & (mcnt >= 2)
         n2c = c2.sum()
         ridx = compact_indices(c2, capr, trim)
@@ -346,7 +346,7 @@ class MxuIsslScorer:
 
         def run_one(page):
             n = page.shape[0]
-            with record_function("mxu.plan"):
+            with trace.span("mxu.plan"):
                 qsp_np, qb = self._plan(page)
             if n >= 2 and self.page_bytes(qb) > self._page_budget:
                 run_one(page[:n // 2])

@@ -30,8 +30,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..device import resolve_device
 from ..index.build import IsslIndex
 from .fullscan import bucket_scan
@@ -71,7 +71,7 @@ class ScanIsslScorer:
     def plan(self, q_sig: torch.Tensor):
         """Sort the page's queries by bucket, per slice: qoff (S, B+1)
         int32 and qsorted (S, n) int32 (the JAX ``_plan``)."""
-        with record_function("scan.plan"):
+        with trace.span("scan.plan"):
             dev = q_sig.device
             S, B, n = self.S, self.B, q_sig.numel()
             shifts = torch.arange(S, device=dev)[:, None] \
@@ -92,7 +92,7 @@ class ScanIsslScorer:
             self.entries, self.occ, self.bucket_offsets, self.bucket_lens,
             q_sig, qoff, qsorted, slice_width=self.index.slice_width,
             max_dist=self.max_dist, tabs=self.tables)
-        with record_function("scan.scatter"):
+        with trace.span("scan.scatter"):
             ids = qsorted.reshape(-1).long()
             n = q_sig.numel()
             mit = torch.zeros(n, dtype=torch.float64, device=self.device)

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Callable
 
+from .. import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
@@ -51,7 +53,9 @@ def build_library(source: str) -> Path:
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
            "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    trace.count("kernel.builds")
+    with trace.span("kernel.build"):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)

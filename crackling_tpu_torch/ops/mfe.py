@@ -32,8 +32,8 @@ import gc
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from . import rna_params as rp
 
 INF = rp.INF
@@ -343,7 +343,7 @@ def _fold_run(pre, grid, c1n, c23: float, ml_base: float):
         # minimum is INF, as in the whole-window minimum
         rows = max(j - 4, 0)
         gen = torch.full((B, n), INF, dtype=dt, device=device)
-        with record_function("mfe.window"):
+        with trace.span("mfe.window"):
             # W[:, kki, lli]: the 29 columns (j-1-b, clipped) once, then
             # each slice's rows
             w_cols = W.index_select(2, clipg(j - 1 - b_in))    # (B, n, 29)
@@ -485,11 +485,11 @@ def fold_chunks(codes: np.ndarray, device=None, chunk: int | None = None):
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-        with record_function("mfe.precompute"):
+        with trace.span("mfe.precompute"):
             pre = _precompute(codes[lo:lo + size], dev, t)
         if cuda:
             ev[1].record()
-        with record_function("mfe.dp"):
+        with trace.span("mfe.dp"):
             dp = _fold_run(pre, grid, c1n, c23, ml_base)
         if cuda:
             ev[2].record()

@@ -5,9 +5,12 @@ output that blocks re-running (ConfigManager.py:172-175), and observability
 is wall-clock prints. Here:
 
 * :class:`Metrics` — per-stage wall time + counters, serialized to
-  ``<output>.metrics.json`` after every batch (observability survives a
-  crash); optionally wraps stages in a ``torch.profiler`` trace when
-  ``[tpu] profile-dir`` is set (one Chrome trace written there on close).
+  ``<output>.metrics.json`` after every stage (observability survives a
+  crash); when ``[tpu] profile-dir`` is set it runs the whole run under a
+  ``torch.profiler`` trace (one Chrome trace written there on close),
+  which turns the tracer (:mod:`crackling_tpu_torch.trace`) on: each stage
+  is a ``stage.<name>`` span, and the file gains the session's spans and
+  counters under ``trace``.
 * :class:`ResumeManifest` — records completed batches next to the output
   CSV. With ``[output] resume = True`` a re-run with the same config skips
   completed batches (candidate extraction is deterministic, so batch
@@ -21,6 +24,8 @@ import json
 import os
 import time
 from contextlib import contextmanager
+
+from .. import trace
 
 
 class Metrics:
@@ -58,16 +63,10 @@ class Metrics:
     def stage(self, name: str):
         self._ensure_trace()
         t0 = time.time()
-        if self._tracing:
-            import torch
-
-            ann = torch.profiler.record_function(f"stage:{name}")
-            ann.__enter__()
         try:
-            yield
+            with trace.span(f"stage.{name}"):
+                yield
         finally:
-            if self._tracing:
-                ann.__exit__(None, None, None)
             self.stages[name] = self.stages.get(name, 0.0) + time.time() - t0
             self.flush()
 
@@ -75,11 +74,14 @@ class Metrics:
         self.counters[name] = self.counters.get(name, 0) + int(n)
 
     def to_dict(self):
-        return {
+        out = {
             "total_seconds": time.time() - self._t0,
             "stage_seconds": {k: round(v, 3) for k, v in self.stages.items()},
             "counters": self.counters,
         }
+        if trace.active():
+            out["trace"] = trace.session().to_dict()
+        return out
 
     def flush(self):
         if self.path:

@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..codec import sigs_to_strings
 from ..constants import (
     CODE_ACCEPTED,
@@ -370,17 +371,18 @@ class Pipeline:
         cm = self.cm
         path = cm["input"]["offtarget-sites"]
         printer(f"Loading off-target index: {path}")
-        if path.endswith(".npz"):
-            index = load_native(path)
-        elif path.endswith(".issl"):
-            index, _ = read_reference_issl(path)
-        else:
-            # site text list: streamed build, memory bounded by the
-            # distinct-site count (never the file size)
-            from ..index.stream import build_index_from_sites_text
+        with trace.span("index.load"):
+            if path.endswith(".npz"):
+                index = load_native(path)
+            elif path.endswith(".issl"):
+                index, _ = read_reference_issl(path)
+            else:
+                # site text list: streamed build, memory bounded by the
+                # distinct-site count (never the file size)
+                from ..index.stream import build_index_from_sites_text
 
-            index = build_index_from_sites_text(path, seq_length=20,
-                                                slice_width=8)
+                index = build_index_from_sites_text(path, seq_length=20,
+                                                    slice_width=8)
         method = cm["offtargetscore"]["method"].strip().lower()
         md = int(cm["offtargetscore"]["max-distance"])
         threshold = float(cm["offtargetscore"]["score-threshold"])
@@ -625,21 +627,25 @@ class Pipeline:
             m = self.filter_mask(t, MODULE_SPECIFICITY)
             failed = 0
             for page in _batched(np.flatnonzero(m), pg_len):
-                sigs20 = t.sig23[page] & np.uint64((1 << 40) - 1)
-                uniq, inv = np.unique(sigs20, return_inverse=True)
-                mit_u, cfd_u = scorer.score(uniq)
-                # round-trip through the reference's %f output formatting so
-                # emitted values match the subprocess pipeline exactly
-                mit = np.array([float(f"{x:.6f}") for x in mit_u])[inv]
-                cfd = np.array([float(f"{x:.6f}") for x in cfd_u])[inv]
-                calc_mit = method in ("mit", "and", "or", "avg")
-                calc_cfd = method in ("cfd", "and", "or", "avg")
-                t.col["mitOfftargetscore"][page] = np.array(
-                    [float(x) for x in mit] if calc_mit else [-1.0] * len(page),
-                    dtype=object)
-                t.col["cfdOfftargetscore"][page] = np.array(
-                    [float(x) for x in cfd] if calc_cfd else [-1.0] * len(page),
-                    dtype=object)
+                with self.metrics.stage("offtarget_unique"):
+                    sigs20 = t.sig23[page] & np.uint64((1 << 40) - 1)
+                    uniq, inv = np.unique(sigs20, return_inverse=True)
+                with self.metrics.stage("offtarget_score"):
+                    mit_u, cfd_u = scorer.score(uniq)
+                with self.metrics.stage("offtarget_format"):
+                    # round-trip through the reference's %f output
+                    # formatting so emitted values match the subprocess
+                    # pipeline exactly
+                    mit = np.array([float(f"{x:.6f}") for x in mit_u])[inv]
+                    cfd = np.array([float(f"{x:.6f}") for x in cfd_u])[inv]
+                    calc_mit = method in ("mit", "and", "or", "avg")
+                    calc_cfd = method in ("cfd", "and", "or", "avg")
+                    t.col["mitOfftargetscore"][page] = np.array(
+                        [float(x) for x in mit] if calc_mit
+                        else [-1.0] * len(page), dtype=object)
+                    t.col["cfdOfftargetscore"][page] = np.array(
+                        [float(x) for x in cfd] if calc_cfd
+                        else [-1.0] * len(page), dtype=object)
                 ok = verdicts(mit, cfd, threshold, method)
                 t.col["passedOffTargetScore"][page] = np.where(
                     ok, CODE_ACCEPTED, CODE_REJECTED).astype(object)
