@@ -210,7 +210,10 @@ class CompactIsslScorer:
         # the page in half; with caps=None on CUDA the scorer auto-tunes:
         # the first page runs at the generous nz_cap defaults, caps
         # shrink to ~1.25x its measured populations, and later overflows
-        # grow the exceeded cap and retry instead of splitting
+        # grow the exceeded cap and retry instead of splitting. A page
+        # shorter than the tuning page runs at caps scaled to its length
+        # (``_caps(rows)``), each at least its own floor, which a scaled
+        # page's overflow grows
         (self.cap_single, self.cap_mslot, self.cap_scell, self.cap_sresc,
          self.cap_mcell, self.cap_rescan,
          self.cap_hits) = normalize_caps(caps, nz_cap)
@@ -218,6 +221,9 @@ class CompactIsslScorer:
             auto_caps = caps is None and self.device.type == "cuda"
         self._auto = bool(auto_caps)
         self._tuned = False
+        self._cap_rows = 0              # the tuning page's guides; 0: none
+        self._cap_floor = (0,) * 7
+        self._drained_rows = 0          # guides of the last drained page
         self.S = index.slice_count
         self.B = index.bucket_count
 
@@ -293,10 +299,18 @@ class CompactIsslScorer:
 
     # -- the page program --------------------------------------------------
 
-    def _caps(self):
-        return (self.cap_single, self.cap_mslot, self.cap_scell,
+    def _caps(self, rows: int | None = None):
+        """The seven caps, or those a page of ``rows`` guides runs at:
+        once auto caps are tuned on a longer page, each scaled by ``rows``
+        over its length to the 4096 grain, and at least its floor."""
+        caps = (self.cap_single, self.cap_mslot, self.cap_scell,
                 self.cap_sresc, self.cap_mcell, self.cap_rescan,
                 self.cap_hits)
+        if rows is None or rows >= self._cap_rows:
+            return caps
+        scaled = (-(-c * rows // self._cap_rows) for c in caps)
+        return tuple(min(c, max(f, -(-x // 4096) * 4096))
+                     for c, f, x in zip(caps, self._cap_floor, scaled))
 
     def _set_caps(self, caps):
         (self.cap_single, self.cap_mslot, self.cap_scell, self.cap_sresc,
@@ -327,7 +341,7 @@ class CompactIsslScorer:
             q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
             self.entries, self.occ, chunk=self.chunk,
             superchunk=self.superchunk, max_dist=self.max_dist,
-            caps=self._caps(), tabs=self.tables,
+            caps=self._caps(q_sig.shape[0]), tabs=self.tables,
             rescan_block=self.rescan_block, scan_width=self._scan_width,
             trim=self.device.type == "cpu")
 
@@ -337,8 +351,8 @@ class CompactIsslScorer:
         return compact_decode(
             q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
             self.entries, self.occ, chunk=self.chunk,
-            superchunk=self.superchunk, caps=self._caps(), tabs=self.tables,
-            trim=self.device.type == "cpu")
+            superchunk=self.superchunk, caps=self._caps(q_sig.shape[0]),
+            tabs=self.tables, trim=self.device.type == "cpu")
 
     def run_page(self, page: np.ndarray, qb: int):
         """The whole page program, enqueued: (header, mit_sums,
@@ -359,68 +373,110 @@ class CompactIsslScorer:
 
     # -- public API --------------------------------------------------------
 
-    def _dispatch(self, lo_idx, page, pending):
+    def _plan(self, page):
+        return plan_query_occupancy(page, self.S, self.B,
+                                    self.index.slice_width, self.qb_cap)
+
+    def _dispatch(self, pos, page, pending):
+        """Plan and enqueue ``page``, the batch's guides at the positions
+        in the ``range`` ``pos``, halving both while it overflows qb_cap."""
         # the span sits here: the dense engine shares plan_query_occupancy
         with trace.span("compact.occupancy"):
-            qb, _need = plan_query_occupancy(
-                page, self.S, self.B, self.index.slice_width, self.qb_cap)
+            qb, _need = self._plan(page)
         trace.count("compact.occupancy_calls")
         if qb is None:
             trace.count("compact.splits")
-            half = page.shape[0] // 2
-            if half == 0:
+            if page.shape[0] < 2:
                 raise RuntimeError("query bucket overflow; raise qb_cap")
-            self._dispatch(lo_idx, page[:half], pending)
-            self._dispatch(lo_idx + half, page[half:], pending)
+            self._halve(pos, page, pending)
             return
         # record the caps the program RAN with: self._caps() can grow
         # mid-drain when an earlier page overflows, and a later page that
         # ran under the old smaller caps must still be checked against
         # those (its compaction truncated at them)
-        pending.append((lo_idx, page, self._caps(), self.run_page(page, qb)))
+        pending.append((pos, page, self._caps(page.shape[0]),
+                        self.run_page(page, qb)))
         trace.count("compact.pages")
+
+    def _halve(self, pos, page, pending):
+        half = page.shape[0] // 2
+        self._dispatch(pos[:half], page[:half], pending)
+        self._dispatch(pos[half:], page[half:], pending)
 
     def _run_pages(self, pages, out_mit, out_cfd):
         pending = []
-        for lo_idx, page in pages:
+        for pos, page in pages:
             with trace.span("compact.dispatch"):
-                self._dispatch(lo_idx, page, pending)
+                self._dispatch(pos, page, pending)
         # drain after every page is enqueued; overflowed pages grow their
         # caps and retry (auto mode) or split in half (explicit caps)
         while pending:
             retry = []
-            for lo_idx, page, ran_caps, (header, m, c) in pending:
+            for pos, page, ran_caps, (header, m, c) in pending:
                 with trace.span("compact.drain"):
                     with trace.span("compact.drain.wait"):
                         header = header.cpu()
                     pops = tuple(int(x) for x in header)
                     self.page_stats.append(pops)
+                    self._drained_rows = page.shape[0]
                     if any(p > cap for p, cap in zip(pops, ran_caps)):
                         trace.count("compact.retries")
                         if self._auto:
-                            self._set_caps(tuple(
-                                _quant_cap(p) if p > cap else cap
-                                for p, cap in zip(pops, self._caps())))
-                            retry.append((lo_idx, page, False))
+                            self._grow_caps(pops, ran_caps, page.shape[0])
+                            retry.append((pos, page, False))
                         else:
                             if page.shape[0] < 2:
                                 raise RuntimeError(
                                     "hit compaction overflow on a single "
                                     "query; raise nz_cap")
-                            retry.append((lo_idx, page, True))
+                            retry.append((pos, page, True))
                         continue
-                    ln = page.shape[0]
-                    out_mit[lo_idx:lo_idx + ln] = m.cpu().numpy()
-                    out_cfd[lo_idx:lo_idx + ln] = c.cpu().numpy()
+                    at = slice(pos.start, pos.stop, pos.step)
+                    out_mit[at] = m.cpu().numpy()
+                    out_cfd[at] = c.cpu().numpy()
             pending = []
-            for lo_idx, page, split in retry:
+            for pos, page, split in retry:
                 with trace.span("compact.dispatch"):
                     if split:
-                        half = page.shape[0] // 2
-                        self._dispatch(lo_idx, page[:half], pending)
-                        self._dispatch(lo_idx + half, page[half:], pending)
+                        self._halve(pos, page, pending)
                     else:
-                        self._dispatch(lo_idx, page, pending)
+                        self._dispatch(pos, page, pending)
+
+    def _grow_caps(self, pops, ran_caps, rows):
+        """Auto caps after a page of ``rows`` guides overflowed: a cap
+        below its population grows to cover it; on a page shorter than the
+        tuning page, so does the floor of each cap the page overflowed, so
+        the retry fits and longer pages keep their caps."""
+        self._set_caps(tuple(_quant_cap(p) if p > cap else cap
+                             for p, cap in zip(pops, self._caps())))
+        if rows < self._cap_rows:
+            self._cap_floor = tuple(
+                max(f, _quant_cap(p)) if p > ran else f
+                for p, ran, f in zip(pops, ran_caps, self._cap_floor))
+
+    def _pages(self, sigs: np.ndarray) -> list:
+        """The batch cut into (positions, page) pairs: ``page`` is a view of
+        ``sigs`` at the ``range`` of positions.
+
+        A batch over ``query_page`` guides whose first strided page fits
+        ``qb_cap`` is cut into ``P = ceil(n / query_page)`` pages, page
+        ``k`` taking positions ``k, k + P, k + 2P, ...``: on a sorted batch
+        (the pipeline hands over ``np.unique``-sorted batches, whose pages
+        in input order crowd one slice-4 bucket and would halve down to
+        ``qb_cap`` guides) each samples every bucket evenly. Otherwise
+        pages take ``query_page`` guides in input order. Each guide's sums
+        are computed the same way in either order."""
+        n, qp = sigs.shape[0], self.query_page
+        P = -(-n // qp)
+        # a page of at most qb_cap guides cannot overflow it
+        if P > 1 and qp > self.qb_cap:
+            with trace.span("compact.repage"):
+                stride = self._plan(sigs[::P])[0] is not None
+            if stride:
+                trace.count("compact.repaged")
+                return [(range(k, n, P), sigs[k::P]) for k in range(P)]
+        return [(range(lo, min(lo + qp, n)), sigs[lo:lo + qp])
+                for lo in range(0, n, qp)]
 
     def score_sums(self, query_sigs: np.ndarray):
         """Per-query full-scan MIT and CFD sums (f64 numpy)."""
@@ -428,9 +484,8 @@ class CompactIsslScorer:
         n = sigs.shape[0]
         out_mit = np.zeros(n, dtype=np.float64)
         out_cfd = np.zeros(n, dtype=np.float64)
-        pages = [(i, sigs[i:i + self.query_page])
-                 for i in range(0, n, self.query_page)]
         with trace.span("compact.score"):
+            pages = self._pages(sigs)
             if self._auto and not self._tuned and pages:
                 # run the first page at the generous defaults, then shrink
                 # every cap to ~1.25x its measured population before the
@@ -438,6 +493,7 @@ class CompactIsslScorer:
                 self._run_pages(pages[:1], out_mit, out_cfd)
                 self._set_caps(tuple(
                     _quant_cap(p) for p in self.page_stats[-1]))
+                self._cap_rows = self._drained_rows
                 self._tuned = True
                 pages = pages[1:]
             self._run_pages(pages, out_mit, out_cfd)

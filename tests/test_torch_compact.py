@@ -6,7 +6,9 @@ On the CPU the port runs its plain finder; the JAX engine runs its Pallas
 kernel in interpret mode, as its own tests do. Tolerances: finder cells
 exact; compaction populations (``page_stats``) exact under the same caps;
 sums within rtol 1e-5 / atol 1e-5 (f32 per-hit arithmetic, summed in
-different orders), as in test_compact.py.
+different orders), as in test_compact.py. The re-paging tests make a sorted
+batch with numpy from a seed, as the off-target stage sends it, and hold
+the port to ``score_bruteforce`` alone.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 from crackling_tpu.ops.issl_compact import CompactIsslScorer as JaxCompact
 from crackling_tpu.ops.issl_compact import _quant_cap as jax_quant_cap
 from crackling_tpu.ops.oracle import score_bruteforce
+from crackling_tpu_torch import trace
 from crackling_tpu_torch.convert import index_from_arrays
 from crackling_tpu_torch.ops.compact_finder import (RANK_EMPTY,
                                                     compact_finder,
@@ -239,3 +242,219 @@ def test_adversarial_deviation_within_band_margin(adversarial):  # noqa: F811
     mit, cfd = sc.score(queries)
     dev = max(np.abs(mit - mit_f64).max(), np.abs(cfd - cfd_f64).max())
     assert dev < COMPACT_MARGIN
+
+
+# -- re-paging sorted batches ----------------------------------------------
+
+REPAGE = dict(query_page=512, qb_cap=64)
+PINNED = np.uint64(0x5A) << np.uint64(32)          # slice 4's value, pinned
+TOP_MASK = np.uint64(0xFF) << np.uint64(32)
+
+
+@pytest.fixture
+def one_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def sorted_batch(rng, n, tops=16):
+    """``n`` guides as the off-target stage hands them over (sorted,
+    distinct) whose slice 4 takes ``tops`` values: a 512-guide page in
+    input order crowds a bucket with ~n / tops guides, a strided one ~512 /
+    tops."""
+    top = rng.choice(256, tops, replace=False).astype(np.uint64)
+    low = rng.integers(0, 1 << 32, size=n).astype(np.uint64)
+    return np.unique((top[rng.integers(0, tops, n)] << np.uint64(32)) | low)
+
+
+def mutants(rng, sigs):
+    pos = rng.integers(0, 20, size=sigs.size).astype(np.uint64) * \
+        np.uint64(2)
+    return ((sigs & ~(np.uint64(3) << pos))
+            | (rng.integers(0, 4, size=sigs.size).astype(np.uint64) << pos))
+
+
+@pytest.fixture(scope="module")
+def sorted_world():
+    """A sorted batch of ~2,048 guides over 16 slice-4 values, 384 sorted
+    guides pinned to one slice-4 value, and an index of every other guide
+    of both and a one-base mutant of each, so that the sums have hits."""
+    rng = np.random.default_rng(16)
+    batch = sorted_batch(rng, 2048)
+    crowd = np.unique((rng.integers(0, 1 << 40, size=384).astype(np.uint64)
+                       & ~TOP_MASK) | PINNED)
+    sites = np.concatenate([batch[::2], crowd[::2], mutants(rng, batch),
+                            mutants(rng, crowd)])
+    from crackling_tpu_torch.index import build_index
+
+    return build_index(sites), batch, crowd
+
+
+def traced_pages(sc, sigs, monkeypatch):
+    """``sc.score_sums(sigs)`` with the tracer on: the sums, the session,
+    and the host pages ``run_page`` received."""
+    ran, run_page = [], CompactIsslScorer.run_page
+
+    def spy(self, page, qb):
+        ran.append(np.array(page))
+        return run_page(self, page, qb)
+
+    monkeypatch.setattr(CompactIsslScorer, "run_page", spy)
+    trace.enable()
+    try:
+        sums = sc.score_sums(sigs)
+        return sums, trace.session(), ran
+    finally:
+        trace.disable()
+
+
+def brute(index, sigs):
+    return score_bruteforce(sigs, index.site_sigs, index.occurrences, 4)
+
+
+@pytest.mark.parametrize("case", ["sorted", "shuffled"])
+def test_repage_engages_on_a_sorted_batch(sorted_world, one_thread,
+                                          monkeypatch, case):
+    """Sorted pages in input order would crowd one slice-4 bucket past
+    qb_cap and halve; the batch is strided into ceil(n / query_page) pages
+    instead, page k holding positions k, k + P, ..., and each answer lands
+    at its guide's position. A shuffled batch, whose strided page fits
+    too, is strided the same way."""
+    index, batch, _crowd = sorted_world
+    sigs = (batch if case == "sorted"
+            else np.random.default_rng(1).permutation(batch))
+    n = sigs.shape[0]
+    P = -(-n // REPAGE["query_page"])
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           **REPAGE)
+    sums, s, ran = traced_pages(sc, sigs, monkeypatch)
+    _assert_sums(sums, brute(index, sigs))
+    assert s.counters.get("compact.repaged") == 1
+    assert "compact.splits" not in s.counters
+    # the decision's plan is none of the pages' plans
+    assert s.counters["compact.pages"] == \
+        s.counters["compact.occupancy_calls"] == len(sc.page_stats) == P
+    assert s.spans["compact.repage"].count == 1
+    assert s.spans["compact.repage"].parent == "compact.score"
+    assert s.spans["compact.occupancy"].count == P
+    assert len(ran) == P
+    for k, page in enumerate(ran):
+        np.testing.assert_array_equal(page, sigs[k::P])
+
+
+@pytest.mark.parametrize("case", ["one-page", "crowd"])
+def test_repage_declined_keeps_input_order(sorted_world, one_thread,
+                                           monkeypatch, case):
+    """A sorted batch of one page is not re-paged, and a batch pinned to
+    one slice-4 bucket overflows qb_cap strided too: both keep input order,
+    halve as before and count no re-page."""
+    index, batch, crowd = sorted_world
+    if case == "one-page":
+        sigs, kw = batch[:REPAGE["query_page"]], REPAGE
+    else:
+        sigs, kw = crowd, dict(query_page=256, qb_cap=64)
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu", **kw)
+    sums, s, ran = traced_pages(sc, sigs, monkeypatch)
+    _assert_sums(sums, brute(index, sigs))
+    assert "compact.repaged" not in s.counters
+    np.testing.assert_array_equal(np.concatenate(ran), sigs)
+    assert s.counters["compact.splits"] > 0
+    assert all(p.shape[0] <= 64 for p in ran)
+    if case == "one-page":
+        assert "compact.repage" not in s.spans
+    else:
+        assert s.spans["compact.repage"].count == 1
+
+
+def test_halving_a_strided_page_keeps_its_positions(sorted_world,
+                                                     one_thread):
+    """A strided page over qb_cap halves its positions with its guides:
+    the answers land at every other position and nowhere else."""
+    index, _batch, crowd = sorted_world
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           qb_cap=64)
+    n = crowd.shape[0]
+    out = np.full((2, n), -1.0)
+    sc._run_pages([(range(1, n, 2), crowd[1::2])], out[0], out[1])
+    assert len(sc.page_stats) == 4          # 192 guides -> 4 pages of 48
+    assert (out[:, ::2] == -1.0).all()
+    _assert_sums((out[0, 1::2], out[1, 1::2]), brute(index, crowd[1::2]))
+
+
+# -- auto caps on a page shorter than the tuning page ----------------------
+
+
+@pytest.fixture(scope="module")
+def direct_world():
+    """4,096 shuffled distinct guides and an index of each and a one-base
+    mutant of each: a 4,096-guide page fills ~4,700 direct slots, past the
+    4,096 grain, and a 1,024-guide page ~1,200."""
+    rng = np.random.default_rng(17)
+    batch = np.unique(rng.integers(0, 1 << 40, size=4096).astype(np.uint64))
+    rng.shuffle(batch)
+    from crackling_tpu_torch.index import build_index
+
+    return build_index(np.concatenate([batch, mutants(rng, batch)])), batch
+
+
+def caps_spy(monkeypatch):
+    """The caps of each decode the page program runs."""
+    from crackling_tpu_torch.ops import issl_compact
+
+    ran, decode = [], issl_compact.decode_score
+
+    def spy(*args, caps, **kw):
+        ran.append(caps)
+        return decode(*args, caps=caps, **kw)
+
+    monkeypatch.setattr(issl_compact, "decode_score", spy)
+    return ran
+
+
+def test_auto_caps_scale_to_a_shorter_page(direct_world, one_thread,
+                                           monkeypatch):
+    """Caps tuned on a 4,096-guide page: a 1,024-guide page runs at caps
+    scaled to a quarter, to the 4,096 grain, and needs no retry."""
+    index, batch = direct_world
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           query_page=4096, auto_caps=True)
+    sc.score_sums(batch)
+    base = sc._caps()
+    assert sc._cap_rows == 4096 and base[0] == _quant_cap(
+        sc.page_stats[0][0]) > 4096
+    ran = caps_spy(monkeypatch)
+    trace.enable()
+    try:
+        sums = sc.score_sums(batch[:1024])
+        s = trace.session()
+    finally:
+        trace.disable()
+    _assert_sums(sums, brute(index, batch[:1024]))
+    assert ran == [sc._caps(1024)] and ran[0][0] == 4096 < base[0]
+    assert "compact.retries" not in s.counters and sc._caps() == base
+
+
+def test_a_scaled_page_over_its_caps_grows_their_floor(direct_world,
+                                                        one_thread):
+    """A page whose caps, scaled from a far longer tuning page, fall below
+    its population retries once at the floor it grew, and the caps of the
+    longer pages stay as they were."""
+    index, batch = direct_world
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           query_page=4096, auto_caps=True)
+    sc._tuned, sc._cap_rows = True, 1 << 20
+    base = sc._caps()
+    assert sc._caps(4096)[0] == 4096
+    trace.enable()
+    try:
+        sums = sc.score_sums(batch)
+        s = trace.session()
+    finally:
+        trace.disable()
+    _assert_sums(sums, brute(index, batch))
+    pop = sc.page_stats[0][0]
+    assert pop > 4096 and s.counters["compact.retries"] == 1
+    assert sc._cap_floor[0] == _quant_cap(pop) == sc._caps(4096)[0]
+    assert sc._caps() == base == sc._caps(1 << 20)

@@ -15,7 +15,10 @@ package's virtual CPU devices. Tolerances:
   tier, tests/test_sharded.py) of JAX's ``ShardedIsslScorer`` sums and of
   ``oracle.score_bruteforce`` (f64);
 * the port's sharded compact engine against JAX's (interpret mode, run
-  once): rtol 1e-5 / atol 1e-5, the tier of tests/test_distributed.py.
+  once): rtol 1e-5 / atol 1e-5, the tier of tests/test_distributed.py;
+* a sorted batch whose query groups each re-page into strided pages:
+  against ``oracle.score_bruteforce`` at rtol 2e-6 / atol 1e-6, and
+  against one unsharded compact engine at rtol 1e-9 / atol 1e-9.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ from crackling_tpu.index import build_index as jax_build_index
 from crackling_tpu.parallel import sharded as jax_sharded
 from crackling_tpu.parallel.distributed import \
     load_index_range as jax_load_index_range
+from crackling_tpu_torch import trace
 from crackling_tpu_torch.index import build_index, write_reference_issl
 from crackling_tpu_torch.ops import issl_compact
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
@@ -33,6 +37,7 @@ from crackling_tpu_torch.ops.oracle import score_bruteforce
 from crackling_tpu_torch.parallel import sharded
 from crackling_tpu_torch.parallel.distributed import (host_mesh,
                                                       load_index_range)
+from test_torch_compact import mutants, sorted_batch
 
 ENGINES = {"flat": (sharded.ShardedIsslScorer,
                     dict(query_block=16, work_block=1 << 10)),
@@ -181,6 +186,31 @@ def test_sharded_compact_ignores_the_onehot_variable(world, monkeypatch):
     engines = {id(e): e for row in sc.engines for e in row}
     assert len(engines) == 2              # one engine per (shard, device)
     assert not any(e.onehot for e in engines.values())
+
+
+def test_sharded_compact_repages_sorted_groups():
+    """A sorted batch as the off-target stage sends it, over 32 slice-4
+    values (~128 guides each, ~32 in a strided page): each query group of
+    a 2 x 2 mesh re-pages in its shard engines (strided pages, no
+    halving), and the merged sums equal the brute force's, and one
+    unsharded engine's within 1e-9."""
+    rng = np.random.default_rng(18)
+    batch = sorted_batch(rng, 4096, tops=32)
+    index = build_index(np.concatenate([batch[::2], mutants(rng, batch)]))
+    kw = dict(max_dist=4, chunk=1024, query_page=512, qb_cap=64)
+    sc = sharded.ShardedCompactIsslScorer(index, cpu_mesh(2, 2), **kw)
+    trace.enable()
+    try:
+        got = sc.score_sums(batch)
+        s = trace.session()
+    finally:
+        trace.disable()
+    assert s.counters["compact.repaged"] == 4     # 2 groups x 2 shards
+    assert "compact.splits" not in s.counters
+    assert_sums(got, score_bruteforce(batch, index.site_sigs,
+                                      index.occurrences, 4), 2e-6, 1e-6)
+    want = CompactIsslScorer(index, device="cpu", **kw).score_sums(batch)
+    assert_sums(got, want, 1e-9, 1e-9)
 
 
 def test_meshes():
