@@ -105,13 +105,18 @@ Phases, each fatal on failure:
    time, sample verdicts identical to native exact for ``and``); then
    the same 65,536 queries with the scan-style engine in 8,192-query
    pages, timed and checked the same way;
-9. the deep bucket: an index with one bucket of more than 2^22 entries,
-   written to a ``.issl``, through ``Pipeline._get_issl_scorer`` with
-   ``engine = compact``, then ``engine = sharded``: each must log the
-   fallback and build the hybrid over the dense engine (the sharded dense
-   engine), whose verdicts on 256 queries (half in the deep bucket) must
-   equal native exact; the sharded run must launch ``dense_scan``, with
-   no plain version;
+9. the deep bucket: an index with one bucket of more than 2^22 entries
+   (the JAX engine's rank bound, not the port's), written to a ``.issl``,
+   through ``Pipeline._get_issl_scorer`` with ``engine = compact``, then
+   ``engine = sharded``: each must build the hybrid over the compact
+   engine (the sharded compact engine) with no fallback logged and
+   launch ``compact_finder``; then both again with the compact engine's
+   lists made not to fit (``issl_compact.free_bytes`` reading one byte
+   while the pipeline builds its scorer): each must log the fallback and
+   build the hybrid over the dense engine (the sharded dense engine) and
+   launch ``dense_scan``. In all four runs the verdicts on 256 queries
+   (half in the deep bucket) must equal native exact, with no plain
+   version run;
 10. the hybrid's verdicts for all five methods against ``score_exact`` on
     the small index, over each fast engine (compact and dense), with its
     own band and with an infinite one, which re-scores every query
@@ -1674,9 +1679,11 @@ def phase_mxu_page(dev, eng, page, card):
     # the replay's rows: the decoded hits and every flagged query's
     # self-hit once per slice
     runs = eng._run_pages(page)
-    counts = np.concatenate([r[1] for r in runs])
+    counts = np.zeros(page.shape[0])
+    for pos, _sub, c, *_hits in runs:
+        counts[pos] = c
     flagged = counts > 0
-    replay_rows = (sum(r[2].size for r in runs)
+    replay_rows = (sum(r[3].size for r in runs)
                    + int((flagged & eng._self_lookup(page)[0]).sum()) * eng.S)
     q, qsp = mxu_inputs(eng, page)
     planes = eng.finder(q, qsp)
@@ -2261,8 +2268,8 @@ def phase_scan_page(dev, eng, queries, card):
 
 def deep_world(seed=31, n_deep=4_300_000):
     """~4.3 M random sites share their slice-0 byte: one bucket of more
-    than 2^22 entries, past the compact engine's rank bound (and the MXU
-    engine's). Queries: 128 in the deep bucket (64 of its sites, 32 of
+    than 2^22 entries, past the JAX engine's rank bound (the port's is
+    2^30). Queries: 128 in the deep bucket (64 of its sites, 32 of
     them with a repeated one-base neighbour, and 64 one-base variants of
     other sites) and 128 elsewhere."""
     from crackling_tpu_torch.index import build_index
@@ -2351,28 +2358,35 @@ engine = {engine}
 
 def phase_deep_bucket(dev, files):
     """``engine = compact``, then ``engine = sharded`` (one process), on an
-    index past the compact rank bound: the logged fallback to the hybrid
-    over the dense engine (the sharded dense engine), verdicts equal to
-    native exact on 256 queries; the sharded run must launch
-    ``dense_scan`` and run no plain version. Returns its launches."""
+    index past the JAX engine's 2^22 rank bound: the hybrid over the
+    compact engine (the sharded compact engine) with no fallback logged,
+    launching ``compact_finder``; then both with the compact lists made
+    not to fit the device (``issl_compact.free_bytes`` patched while the
+    pipeline builds its scorer): the logged fallback to the hybrid over
+    the dense engine (the sharded dense engine), launching ``dense_scan``.
+    Each run's verdicts on 256 queries must equal native exact, with no
+    plain version run. Returns the sharded dense run's ``dense_scan``
+    launches."""
     import contextlib
     import io
 
     from crackling_tpu_torch import native
     from crackling_tpu_torch.index import write_reference_issl
+    from crackling_tpu_torch.ops import issl_compact
     from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
-    from crackling_tpu_torch.ops.issl_compact import RANK_BOUND
+    from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
     from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
-    from crackling_tpu_torch.parallel.sharded import ShardedDenseIsslScorer
+    from crackling_tpu_torch.parallel.sharded import (ShardedCompactIsslScorer,
+                                                      ShardedDenseIsslScorer)
     from crackling_tpu_torch.pipeline.config import ConfigManager
     from crackling_tpu_torch.pipeline.run import Pipeline, verdicts
 
     t = time.perf_counter()
     index, queries = deep_world()
     deepest = int(np.diff(index.bucket_offsets, axis=1).max())
-    if deepest < RANK_BOUND:
+    if deepest <= 1 << 22:
         fail(f"the deep index's deepest bucket ({deepest:,}) is within the "
-             "compact rank bound")
+             "JAX engine's rank bound")
     out = CACHE / "deep_bucket"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -2382,24 +2396,42 @@ def phase_deep_bucket(dev, files):
     want = verdicts(*native.exact_score_native(index, queries, 4, 75.0,
                                                "and"), 75.0, "and")
     kernels = kernel_counters()
-    for engine, log_lines, dense_type in (
-            ("compact", ("compact engine unavailable",
-                         "using the dense engine"), DenseIsslScorer),
-            ("sharded", ("sharded compact unavailable",
-                         "using the sharded dense engine"),
-             ShardedDenseIsslScorer)):
+
+    @contextlib.contextmanager
+    def lists_do_not_fit():
+        real = issl_compact.free_bytes
+        issl_compact.free_bytes = lambda device: 1
+        try:
+            yield
+        finally:
+            issl_compact.free_bytes = real
+
+    runs = (
+        ("compact", False, (), CompactIsslScorer, "compact_finder"),
+        ("sharded", False, (), ShardedCompactIsslScorer, "compact_finder"),
+        ("compact", True, ("compact engine unavailable",
+                           "using the dense engine"), DenseIsslScorer,
+         "dense_scan"),
+        ("sharded", True, ("sharded compact unavailable",
+                           "using the sharded dense engine"),
+         ShardedDenseIsslScorer, "dense_scan"))
+    for engine, refused, log_lines, dense_type, kernel in runs:
         cm = ConfigManager(str(write_config(out, files, engine, issl)),
                            lambda m: None)
         if not cm.isConfigured():
             fail("the deep-bucket config did not load")
         buf = io.StringIO()
         t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), \
+                (lists_do_not_fit() if refused else contextlib.nullcontext()):
             scorer = Pipeline(cm, device=dev)._get_issl_scorer()
         load_s = time.perf_counter() - t
-        if not all(ln in buf.getvalue() for ln in log_lines):
-            fail(f"engine = {engine} on the deep index did not log the "
-                 "dense fallback")
+        log = buf.getvalue()
+        if refused and not all(ln in log for ln in log_lines):
+            fail(f"engine = {engine} on the deep index with lists that do "
+                 f"not fit did not log the dense fallback: {log!r}")
+        if not refused and "unavailable" in log:
+            fail(f"engine = {engine} on the deep index fell back: {log!r}")
         if not isinstance(scorer, HybridIsslScorer) \
                 or not isinstance(scorer.dense, dense_type):
             fail(f"the deep index's scorer is {type(scorer).__name__} over "
@@ -2412,13 +2444,16 @@ def phase_deep_bucket(dev, files):
         score_s = time.perf_counter() - t
         launches, plain_calls = read_counters(kernels)
         if not np.array_equal(verdicts(*got, 75.0, "and"), want):
-            fail(f"deep-bucket verdicts (engine = {engine}) differ from the "
+            fail(f"deep-bucket verdicts (engine = {engine}, lists "
+                 f"{'refused' if refused else 'resident'}) differ from the "
                  "native exact scorer")
-        if torch_is_cuda(dev) and (launches["dense_scan"] <= 0
+        if torch_is_cuda(dev) and (launches[kernel] <= 0
                                    or any(plain_calls.values())):
-            fail(f"the deep index's engine = {engine} run launched "
+            fail(f"the deep index's engine = {engine} run (lists "
+                 f"{'refused' if refused else 'resident'}) launched "
                  f"{launches} with plain calls {plain_calls}")
         emit({"phase": "deep_bucket", "engine": engine,
+              "fast": dense_type.__name__, "lists_refused": refused,
               "sites": index.num_sites, "deepest_bucket": deepest,
               "queries": int(queries.shape[0]),
               "rescored": scorer.last_rescored,

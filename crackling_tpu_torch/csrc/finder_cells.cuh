@@ -16,7 +16,9 @@
 
 namespace finder_cells {
 
-constexpr int kRankEmpty = 1 << 23;     // min rank of an empty cell
+// min rank of an empty cell: INT32_MAX, above every rank (buckets hold
+// fewer than 2^30 entries: ops/issl_compact.py RANK_BOUND)
+constexpr int kRankEmpty = 0x7FFFFFFF;
 
 struct Planes {
   int* cnt;

@@ -72,11 +72,18 @@ class IsslIndex:
         return ((np.asarray(sigs, dtype=np.uint64)[None, :] >> shifts) & mask)
 
     def _build_slices(self) -> None:
+        from .. import native
+
         n = self.num_sites
         s_count, b_count = self.slice_count, self.bucket_count
         order = np.empty((s_count, n), dtype=np.int32)
         offsets = np.empty((s_count, b_count + 1), dtype=np.int64)
         for s in range(s_count):
+            # the native counting sort gives numpy's stable argsort, in
+            # parallel
+            if native.bucket_order_native(self.site_sigs, s * self.slice_width,
+                                          b_count, order[s], offsets[s]):
+                continue
             shift = np.uint64(s * self.slice_width)
             mask = np.uint64(b_count - 1)
             # narrow to the smallest dtype before sorting: numpy radix-sorts
@@ -187,7 +194,8 @@ def build_index(
     lex = native.lex_convert_native(sigs, seq_length)
     if lex is None:
         lex = _lofirst_to_lex(sigs, seq_length)
-    lex_sorted = native.sort_u64_native(lex.copy())
+    # sorted in place: ``lex`` is read again only where the lib is missing
+    lex_sorted = native.sort_u64_native(lex)
     uc = (native.unique_counts_native(lex_sorted)
           if lex_sorted is not None else None)
     if uc is not None:

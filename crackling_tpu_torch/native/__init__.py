@@ -79,6 +79,11 @@ def get_lib():
         lib.ct_sort_u64.argtypes = [u64p, i64]
         lib.ct_unique_counts.restype = i64
         lib.ct_unique_counts.argtypes = [u64p, i64, u64p, u32p]
+        lib.ct_bucket_order.restype = None
+        lib.ct_bucket_order.argtypes = [
+            u64p, i64, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS,WRITEABLE"),
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS,WRITEABLE")]
         lib.ct_lex_convert.restype = None
         lib.ct_lex_convert.argtypes = [u64p, u64p, i64, ctypes.c_int]
         lib.ct_merge_u64.restype = None
@@ -261,6 +266,20 @@ def unique_counts_native(sorted_arr: np.ndarray):
     counts = np.empty(n, dtype=np.uint32)
     m = lib.ct_unique_counts(np.ascontiguousarray(sorted_arr), n, vals, counts)
     return vals[:m].copy(), counts[:m].copy()
+
+
+def bucket_order_native(sigs: np.ndarray, shift: int, nbuckets: int,
+                        order: np.ndarray, offsets: np.ndarray) -> bool:
+    """Fill ``order`` (int32, ids in stable bucket order) and ``offsets``
+    (int64, bucket starts and the end) for buckets ``(sigs >> shift) &
+    (nbuckets - 1)``; False when the native lib is missing."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    sigs = np.ascontiguousarray(sigs, dtype=np.uint64)
+    lib.ct_bucket_order(sigs, sigs.shape[0], int(shift), int(nbuckets),
+                        order, offsets)
+    return True
 
 
 def merge_u64_native(a: np.ndarray, b: np.ndarray) -> np.ndarray | None:

@@ -22,6 +22,7 @@
 #include <cstring>
 #include <vector>
 #include <algorithm>
+#include <memory>
 #ifdef _OPENMP
 #include <omp.h>
 #endif
@@ -87,47 +88,82 @@ extern "C" {
 
 // All possible off-target 20-mer signatures. Returns the count; writes up
 // to `cap` signatures (forward hits first, then reverse, matching the
-// Python extractor's per-sequence ordering).
+// Python extractor's per-sequence ordering). OpenMP over chunks of window
+// starts: a counting pass places each chunk's hits, a second pass writes
+// them, so the output is the serial scan's, in its order.
 int64_t ct_extract_offtargets(const char* seq, int64_t n, int to_upper,
                               uint64_t* out, int64_t cap) {
     if (n < 23) return 0;
-    Scan sc(seq, n, to_upper != 0);
+    uint8_t table[256];
+    build_code_table(table, to_upper != 0);
+    std::unique_ptr<uint8_t[]> buf(new uint8_t[n]);
+    uint8_t* codes = buf.get();
+    #ifdef _OPENMP
+    #pragma omp parallel for schedule(static)
+    #endif
+    for (int64_t i = 0; i < n; i++) codes[i] = table[(uint8_t)seq[i]];
+
     const int64_t last = n - 22;
     const uint64_t mask40 = (1ULL << 40) - 1;
-    int64_t count = 0;
-    // forward pass with a rolling 20-mer signature:
-    //   sig' = (sig >> 2) | c_new << 38
-    {
-        uint64_t sig = 0;
-        for (int j = 0; j < 20; j++)
-            sig |= (uint64_t)(sc.codes[j] & 3) << (2 * j);
-        for (int64_t i = 0; i < last; i++) {
-            uint8_t c0 = sc.codes[i], c21 = sc.codes[i + 21],
-                    c22 = sc.codes[i + 22];
-            if (c0 != 3 && c22 == 2 && (c21 & 1) == 0 && sc.window_valid(i, 23)) {
-                if (count < cap) out[count] = sig;
-                count++;
+    const int64_t nchunk = std::min<int64_t>(last, 1024);
+    std::vector<int64_t> fcnt(nchunk + 1, 0), rcnt(nchunk + 1, 0);
+    // pass 0 counts each chunk's forward and reverse hits; pass 1 writes
+    // them at the offsets the counts give
+    for (int pass = 0; pass < 2; pass++) {
+        #ifdef _OPENMP
+        #pragma omp parallel for schedule(dynamic, 1)
+        #endif
+        for (int64_t k = 0; k < nchunk; k++) {
+            const int64_t lo = last * k / nchunk, hi = last * (k + 1) / nchunk;
+            int bad = 0;            // invalid codes in codes[i, i + 23)
+            uint64_t sig = 0, rc = 0;
+            for (int j = 0; j < 22; j++) bad += codes[lo + j] == BAD;
+            for (int j = 0; j < 20; j++) {
+                sig |= (uint64_t)(codes[lo + j] & 3) << (2 * j);
+                rc |= (uint64_t)((codes[lo + j] & 3) ^ 3) << (2 * (19 - j));
             }
-            sig = (sig >> 2) | ((uint64_t)(sc.codes[i + 20] & 3) << 38);
+            int64_t f = pass ? fcnt[k] : 0, r = pass ? rcnt[k] : 0;
+            for (int64_t i = lo; i < hi; i++) {
+                const uint8_t c0 = codes[i], c1 = codes[i + 1],
+                              c21 = codes[i + 21], c22 = codes[i + 22];
+                bad += c22 == BAD;
+                if (bad == 0) {
+                    if (c0 != 3 && c22 == 2 && (c21 & 1) == 0) {
+                        if (pass && f < cap) out[f] = sig;
+                        f++;
+                    }
+                    if (c0 == 1 && (c1 & 1) == 1 && c22 != 0) {
+                        if (pass && r < cap) out[r] = rc;
+                        r++;
+                    }
+                }
+                bad -= c0 == BAD;
+                const uint64_t c20 = codes[i + 20] & 3;
+                sig = (sig >> 2) | (c20 << 38);
+                rc = ((rc << 2) | (c20 ^ 3)) & mask40;
+            }
+            if (!pass) {
+                fcnt[k] = f;
+                rcnt[k] = r;
+            }
+        }
+        if (!pass) {
+            // exclusive offsets: the forward hits, then the reverse
+            int64_t acc = 0;
+            for (int64_t k = 0; k < nchunk; k++) {
+                const int64_t c = fcnt[k];
+                fcnt[k] = acc;
+                acc += c;
+            }
+            for (int64_t k = 0; k < nchunk; k++) {
+                const int64_t c = rcnt[k];
+                rcnt[k] = acc;
+                acc += c;
+            }
+            fcnt[nchunk] = rcnt[nchunk] = acc;
         }
     }
-    // reverse pass with a rolling reverse-complement signature:
-    //   rc' = ((rc << 2) | comp(c_new)) & mask  (new base lands at pos 0)
-    {
-        uint64_t rc = 0;
-        for (int j = 0; j < 20; j++)
-            rc |= (uint64_t)((sc.codes[j] & 3) ^ 3) << (2 * (19 - j));
-        for (int64_t i = 0; i < last; i++) {
-            uint8_t c0 = sc.codes[i], c1 = sc.codes[i + 1],
-                    c22 = sc.codes[i + 22];
-            if (c0 == 1 && (c1 & 1) == 1 && c22 != 0 && sc.window_valid(i, 23)) {
-                if (count < cap) out[count] = rc;
-                count++;
-            }
-            rc = ((rc << 2) | (uint64_t)((sc.codes[i + 20] & 3) ^ 3)) & mask40;
-        }
-    }
-    return count;
+    return fcnt[nchunk];
 }
 
 // Candidate 23-mer target sites. Writes signatures, start positions and
@@ -254,50 +290,158 @@ int64_t ct_pack_lines(const uint8_t* rows, int64_t n, int width,
     return bad;
 }
 
-// In-place parallel LSD radix sort of uint64 keys (8 passes x 8 bits).
+// In-place parallel LSD radix sort of uint64 keys, 8 bits a pass. A pass
+// whose byte is the same in every key is skipped (40-bit signatures take
+// 5). Each thread counts its own range; ranges scatter in order, so every
+// pass is stable.
 void ct_sort_u64(uint64_t* arr, int64_t n) {
     if (n < 2) return;
-    std::vector<uint64_t> tmp(n);
+    uint64_t all_or = 0, all_and = ~0ULL;
+    #ifdef _OPENMP
+    #pragma omp parallel for reduction(|:all_or) reduction(&:all_and)
+    #endif
+    for (int64_t i = 0; i < n; i++) {
+        all_or |= arr[i];
+        all_and &= arr[i];
+    }
+    const uint64_t varies = all_or ^ all_and;
+    std::unique_ptr<uint64_t[]> tmp(new uint64_t[n]);
     uint64_t* src = arr;
-    uint64_t* dst = tmp.data();
+    uint64_t* dst = tmp.get();
+    int maxt = 1;
+    #ifdef _OPENMP
+    maxt = omp_get_max_threads();
+    #endif
+    std::vector<int64_t> pos((size_t)maxt * 256);
     for (int pass = 0; pass < 8; pass++) {
         const int shift = pass * 8;
-        int64_t counts[256] = {0};
-        for (int64_t i = 0; i < n; i++)
-            counts[(src[i] >> shift) & 0xFF]++;
-        int64_t pos[256];
-        int64_t acc = 0;
-        for (int b = 0; b < 256; b++) { pos[b] = acc; acc += counts[b]; }
-        for (int64_t i = 0; i < n; i++)
-            dst[pos[(src[i] >> shift) & 0xFF]++] = src[i];
+        if (((varies >> shift) & 0xFF) == 0) continue;
+        #ifdef _OPENMP
+        #pragma omp parallel num_threads(maxt)
+        #endif
+        {
+            int t = 0, nt = 1;
+            #ifdef _OPENMP
+            t = omp_get_thread_num();
+            nt = omp_get_num_threads();
+            #endif
+            const int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
+            int64_t* mine = pos.data() + (size_t)t * 256;
+            std::fill(mine, mine + 256, 0);
+            for (int64_t i = lo; i < hi; i++) mine[(src[i] >> shift) & 0xFF]++;
+            #ifdef _OPENMP
+            #pragma omp barrier
+            #pragma omp single
+            #endif
+            {
+                int64_t acc = 0;
+                for (int b = 0; b < 256; b++)
+                    for (int u = 0; u < nt; u++) {
+                        const int64_t c = pos[(size_t)u * 256 + b];
+                        pos[(size_t)u * 256 + b] = acc;
+                        acc += c;
+                    }
+            }
+            for (int64_t i = lo; i < hi; i++)
+                dst[mine[(src[i] >> shift) & 0xFF]++] = src[i];
+        }
         std::swap(src, dst);
     }
-    // 8 passes -> result is back in arr already (even number of swaps)
+    if (src != arr) memcpy(arr, src, (size_t)n * sizeof(uint64_t));
 }
 
 // Run-length unique of a sorted array: writes distinct values and counts,
 // returns the number of distinct values (reference occurrence counting,
-// isslCreateIndex.cpp:184-207).
+// isslCreateIndex.cpp:184-207). Each thread takes the runs that start in
+// its range of the input.
 int64_t ct_unique_counts(const uint64_t* sorted, int64_t n,
                          uint64_t* out_vals, uint32_t* out_counts) {
     if (n == 0) return 0;
-    int64_t m = 0;
-    uint64_t cur = sorted[0];
-    uint32_t cnt = 1;
-    for (int64_t i = 1; i < n; i++) {
-        if (sorted[i] == cur) {
-            cnt++;
-        } else {
-            out_vals[m] = cur;
-            out_counts[m] = cnt;
+    int maxt = 1;
+    #ifdef _OPENMP
+    maxt = omp_get_max_threads();
+    #endif
+    std::vector<int64_t> heads(maxt + 1, 0);
+    int used = 1;
+    #ifdef _OPENMP
+    #pragma omp parallel num_threads(maxt)
+    #endif
+    {
+        int t = 0, nt = 1;
+        #ifdef _OPENMP
+        t = omp_get_thread_num();
+        nt = omp_get_num_threads();
+        #endif
+        const int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
+        int64_t m = 0;
+        for (int64_t i = lo; i < hi; i++)
+            m += i == 0 || sorted[i] != sorted[i - 1];
+        heads[t + 1] = m;
+        #ifdef _OPENMP
+        #pragma omp barrier
+        #pragma omp single
+        #endif
+        {
+            used = nt;
+            for (int u = 0; u < nt; u++) heads[u + 1] += heads[u];
+        }
+        m = heads[t];
+        for (int64_t i = lo; i < hi; i++) {
+            if (i != 0 && sorted[i] == sorted[i - 1]) continue;
+            int64_t j = i + 1;
+            while (j < n && sorted[j] == sorted[i]) j++;
+            out_vals[m] = sorted[i];
+            out_counts[m] = (uint32_t)(j - i);
             m++;
-            cur = sorted[i];
-            cnt = 1;
         }
     }
-    out_vals[m] = cur;
-    out_counts[m] = cnt;
-    return m + 1;
+    return heads[used];
+}
+
+// One slice of the index's inverted lists: the ids 0..n-1 ordered by
+// their bucket (sigs >> shift) & (nbuckets - 1), stably, as numpy's stable
+// argsort orders them, and the buckets' starts (offsets[b], with
+// offsets[nbuckets] == n). A parallel counting sort.
+void ct_bucket_order(const uint64_t* sigs, int64_t n, int shift,
+                     int nbuckets, int32_t* order, int64_t* offsets) {
+    const uint64_t mask = (uint64_t)nbuckets - 1;
+    int maxt = 1;
+    #ifdef _OPENMP
+    maxt = omp_get_max_threads();
+    #endif
+    std::vector<int64_t> pos((size_t)maxt * nbuckets);
+    #ifdef _OPENMP
+    #pragma omp parallel num_threads(maxt)
+    #endif
+    {
+        int t = 0, nt = 1;
+        #ifdef _OPENMP
+        t = omp_get_thread_num();
+        nt = omp_get_num_threads();
+        #endif
+        const int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
+        int64_t* mine = pos.data() + (size_t)t * nbuckets;
+        std::fill(mine, mine + nbuckets, 0);
+        for (int64_t i = lo; i < hi; i++) mine[(sigs[i] >> shift) & mask]++;
+        #ifdef _OPENMP
+        #pragma omp barrier
+        #pragma omp single
+        #endif
+        {
+            int64_t acc = 0;
+            for (int b = 0; b < nbuckets; b++) {
+                offsets[b] = acc;
+                for (int u = 0; u < nt; u++) {
+                    const int64_t c = pos[(size_t)u * nbuckets + b];
+                    pos[(size_t)u * nbuckets + b] = acc;
+                    acc += c;
+                }
+            }
+            offsets[nbuckets] = acc;
+        }
+        for (int64_t i = lo; i < hi; i++)
+            order[mine[(sigs[i] >> shift) & mask]++] = (int32_t)i;
+    }
 }
 
 // Linear merge of two sorted uint64 blocks (stable: ties take from a

@@ -48,7 +48,9 @@ import torch
 from .bits import SIG40, collapse_pairs, earlier_slice_clean, popcount
 from .kernel_build import KernelLibrary
 
-RANK_EMPTY = 1 << 23          # min-rank of an empty cell (ranks < 2^22)
+# min rank of an empty cell: the int32 rank planes' largest value, above
+# every rank (``issl_compact.RANK_BOUND`` keeps buckets below 2^30 entries)
+RANK_EMPTY = (1 << 31) - 1
 # entries per block round of the kernel (.cu kTile), a multiple of the
 # one-hot kernel's shared tile (compact_onehot.cu kTileRows): chunks are
 # multiples of it

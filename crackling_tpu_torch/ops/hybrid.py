@@ -8,11 +8,14 @@ queries whose verdict its rounding could flip are scored again exactly:
 in f64, in the reference's scan order and with its early exit.
 
 Re-score chain, as in the JAX package (``issl_dense.py:537-578``): the
-bit-exact MXU engine (``ops/issl_mxu.py``) on the fast engine's device;
-where it does not fit (its rank bound or the device's free memory), the
-native host scanner ``native/exact.cpp`` (the binary's per-query bucket
-walk, OpenMP across queries); without a host toolchain, the flat exact
-engine (``ops/issl_flat.py``) in f64 on the CPU.
+bit-exact MXU engine (``ops/issl_mxu.py``) on the fast engine's device,
+reading the compact engine's resident lists where the fast engine is that
+one (one copy of the index's lists on the device); where it does not fit
+(its rank bound or the device's free memory), the native host scanner
+``native/exact.cpp`` (the binary's per-query bucket walk, OpenMP across
+queries); without a host toolchain, the flat exact engine
+(``ops/issl_flat.py``) in f64 on the CPU. Each re-score call that goes to
+one of those two counts ``hybrid.exact_fallback`` in the tracer.
 """
 
 from __future__ import annotations
@@ -111,10 +114,14 @@ class HybridIsslScorer:
             from .. import native
             from .issl_mxu import MxuIsslScorer
 
+            lists = getattr(self.dense, "lists", None)
+            kw = {} if lists is None else dict(lists=lists,
+                                               chunk=self.dense.chunk)
             try:
                 self._exact = MxuIsslScorer(
                     self.index, max_dist=self.max_dist, method=self.method,
-                    threshold=self.threshold, device=self.dense.device)
+                    threshold=self.threshold, device=self.dense.device,
+                    **kw)
             except ValueError:
                 # a bucket past the MXU engine's rank bound, or its index
                 # and page buffers do not fit beside the fast engine's:
@@ -157,8 +164,13 @@ class HybridIsslScorer:
         trace.count("hybrid.guides", sigs.shape[0])
         trace.count("hybrid.rescored", self.last_rescored)
         if near.any():
+            from .issl_mxu import MxuIsslScorer
+
+            exact = self._get_exact()
+            if not isinstance(exact, MxuIsslScorer):
+                trace.count("hybrid.exact_fallback")
             with trace.span("mxu.rescore"):
-                em, ec = self._get_exact().score(sigs[near])
+                em, ec = exact.score(sigs[near])
             mit[near] = em
             cfd[near] = ec
         return mit, cfd

@@ -45,7 +45,7 @@ from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex
 from ..pipeline.logger import printer
 from .compact_decode import Decoded, compact_decode
-from .compact_finder import FinderOut, compact_finder
+from .compact_finder import FinderOut, compact_finder, superchunk_cells
 from .compact_onehot import LANES, compact_finder_onehot, onehot_planes
 from .compact_rescan import RESCAN_BLOCK, ScoreTables, compact_rescan
 from .hybrid import plan_query_occupancy
@@ -53,7 +53,14 @@ from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                      cfd_pos_penalties, mit_dense_table)
 
 ALIGN = 1024        # bucket starts are padded to multiples of this
-RANK_BOUND = 1 << 22
+# the deepest bucket the engine takes: below it every in-bucket rank, and
+# every index the kernels form from one (a rank plus a batch's lanes), is
+# exact in int32 under the empty cell's RANK_EMPTY (2^31 - 1). The JAX
+# engine's moment decoder keeps ranks in f32 and stops at 2^22 (PARITY.md)
+RANK_BOUND = 1 << 30
+# a finder cell's bytes: count, min and max rank (int32), rank sum (int64)
+CELL_BYTES = 4 + 4 + 4 + 8
+SLOT_ALIGN = 64     # slot counts are multiples of this (the finder's block)
 # the JAX engine's one-hot plane budget, over its 128-lane plane bytes
 PLANE_BUDGET = 4 << 30
 JAX_PLANE_LANES = 128
@@ -126,19 +133,49 @@ class AlignedLists(NamedTuple):
     blen: torch.Tensor      # (S, B) int32 bucket lengths
 
 
+def aligned_layout(index: IsslIndex, tail: int = 0):
+    """Where :func:`aligned_lists` puts each bucket: (starts (S, B + 1)
+    int64, with every bucket start on an ALIGN boundary and the last
+    column each slice's aligned length, and the row length ``epad``, which
+    adds ``tail`` dead entries and rounds up to ALIGN)."""
+    lens = np.diff(index.bucket_offsets, axis=1).astype(np.int64)
+    starts = np.zeros((lens.shape[0], lens.shape[1] + 1), dtype=np.int64)
+    np.cumsum(-(-lens // ALIGN) * ALIGN, axis=1, out=starts[:, 1:])
+    epad = int(starts[:, -1].max(initial=0)) + max(tail, 0)
+    return starts, -(-epad // ALIGN) * ALIGN
+
+
 def aligned_lists(index: IsslIndex, device, tail: int = 0) -> AlignedLists:
     """The index's lists with every bucket start on an ALIGN boundary and
-    ``tail`` dead entries after each slice, uploaded to ``device``."""
-    arrs = index.device_arrays_aligned(align=ALIGN, tail=tail)
-    lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
-    hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
-    return AlignedLists(
-        torch.as_tensor((lo | (hi << np.uint64(32))).view(np.int64),
-                        device=device),
-        torch.as_tensor(arrs["list_occ"], device=device),
-        torch.as_tensor(arrs["bucket_offsets"][:, :index.bucket_count]
-                        .astype(np.int64), device=device),
-        torch.as_tensor(arrs["bucket_lens"], device=device))
+    ``tail`` dead entries after each slice (signature -1, occurrence 0):
+    the layout of ``IsslIndex.device_arrays_aligned``, each entry's
+    signature one int64, built on ``device`` a slice at a time from the
+    sites and each slice's order, with no host copy of the layout."""
+    dev = torch.device(device)
+    S, B, N = index.slice_count, index.bucket_count, index.num_sites
+    starts, epad = aligned_layout(index, tail)
+    src = index.bucket_offsets.astype(np.int64)
+    lens = np.diff(src, axis=1)
+    entries = torch.full((S, epad), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros((S, epad), dtype=torch.int32, device=dev)
+    sigs = torch.as_tensor(
+        np.ascontiguousarray(index.site_sigs, dtype=np.uint64)
+        .view(np.int64), device=dev)
+    counts = torch.as_tensor(index.occurrences.astype(np.int32), device=dev)
+    for s in range(S):
+        # rank k of bucket b goes to starts[s, b] + k
+        at = torch.repeat_interleave(
+            torch.as_tensor(starts[s, :B] - src[s, :B], device=dev),
+            torch.as_tensor(lens[s], device=dev), output_size=N)
+        at += torch.arange(N, device=dev)
+        ids = torch.as_tensor(index.order[s], device=dev).long()
+        entries[s, at] = sigs[ids]
+        occ[s, at] = counts[ids]
+        del at, ids
+    return AlignedLists(entries, occ,
+                        torch.as_tensor(np.ascontiguousarray(starts[:, :B]),
+                                        device=dev),
+                        torch.as_tensor(lens.astype(np.int32), device=dev))
 
 
 def score_tables(max_dist: int, device) -> ScoreTables:
@@ -194,7 +231,8 @@ class CompactIsslScorer:
                  superchunk: int | None = None,
                  rescan_block: int | None = None,
                  auto_caps: bool | None = None,
-                 onehot: bool | None = None, device=None):
+                 onehot: bool | None = None, reserve: int | None = None,
+                 device=None):
         self.device = resolve_device(device)
         if index.slice_width != 8 or index.seq_length != 20:
             raise ValueError("compact engine supports l=20, w=8")
@@ -228,13 +266,11 @@ class CompactIsslScorer:
         self.B = index.bucket_count
 
         maxblen = int(np.diff(index.bucket_offsets, axis=1).max())
-        # the JAX engine's moment decoder keeps ranks in f32, exact below
-        # 2^22; this port keeps the same bound (lifting it is ROADMAP
-        # queue 1, item 2(d))
         if maxblen >= RANK_BOUND:
             raise ValueError(
                 f"bucket with {maxblen:,} entries exceeds the moment "
-                "decoder's 2^22 rank-exactness bound")
+                f"decoder's rank-exactness bound ({RANK_BOUND:,} entries: "
+                "int32 ranks below the empty-cell sentinel)")
         self._nchmax = max(1, -(-maxblen // self.chunk))
         self.superchunk = (auto_superchunk(self._nchmax)
                            if superchunk is None else int(superchunk))
@@ -246,6 +282,35 @@ class CompactIsslScorer:
         # rescan width: a chunk, or less when every bucket is shorter
         # (entries past a bucket's end never hit)
         self._scan_width = min(self.chunk, max(64, -(-maxblen // 64) * 64))
+        # device bytes a page takes per slot of qb (finder cells, plan)
+        cells = (self._nchmax
+                 + superchunk_cells(self._nchmax, self.superchunk) + 1)
+        self._slot_bytes = self.S * self.B * (cells * CELL_BYTES + 4)
+        # device bytes the pages leave free for a companion: by default
+        # the hybrid's exact re-scorer, which reads these lists
+        if reserve is None:
+            from .issl_mxu import added_bytes
+
+            reserve = added_bytes(index, self.chunk, shared=True)
+        self.reserve = int(reserve)
+
+        # memory BEFORE any device work: the lists, their build's
+        # transients (each site's signature and count, and a slice's
+        # positions, its arange and its site ids, int64) and the least page
+        # (SLOT_ALIGN slots, as many guides) must fit; else ValueError, so
+        # the pipeline falls back to the dense engine
+        epad = aligned_layout(index, self.chunk)[1]
+        lists = self.S * epad * (8 + 4)
+        build = index.num_sites * (8 + 4 + 3 * 8)
+        need = lists + build + self.page_bytes(SLOT_ALIGN, SLOT_ALIGN)
+        free = free_bytes(self.device)
+        if need > free:
+            raise ValueError(
+                f"the compact engine needs ~{need / 1e9:.2f} GB on "
+                f"{self.device} (lists {lists / 1e9:.2f} GB + their build "
+                f"{build / 1e9:.2f} GB + one page of {SLOT_ALIGN} slots) "
+                f"but {free / 1e9:.2f} GB are free at "
+                f"{index.num_sites:,} sites")
 
         with trace.span("compact.build.lists"):
             (self.entries, self.occ, self.bucket_offsets,
@@ -262,6 +327,7 @@ class CompactIsslScorer:
         # n_sresc, n_mcell, n_rescan, 0) recorded by every drain — the
         # cap-tuning instrumentation
         self.page_stats: list[tuple[int, ...]] = []
+        self._fit_pages()
 
     def _want_onehot(self, onehot: bool | None) -> bool:
         """The finder choice, made as the JAX engine makes it: ``None``
@@ -298,6 +364,47 @@ class CompactIsslScorer:
         return True
 
     # -- the page program --------------------------------------------------
+
+    @property
+    def lists(self) -> AlignedLists:
+        """The engine's resident lists, which the hybrid's exact re-scorer
+        reads too (one copy on the device)."""
+        return AlignedLists(self.entries, self.occ, self.bucket_offsets,
+                            self.bucket_lens)
+
+    def page_bytes(self, qb: int, n: int) -> int:
+        """Device bytes a page of ``n`` guides at ``qb`` slots a bucket
+        allocates: its finder cells, slot plan and signatures, and its
+        decode's counters, sums and rescan rows (at the cap it runs at)."""
+        return (self._slot_bytes * qb + 8 * n + 2 * 8 * (n + 1)
+                + 6 * 16 * 8 + 6 * 8 * self._caps(n)[5])
+
+    def _fit_pages(self):
+        """Size the pages to the device, once the lists are on it: where a
+        page at ``qb_cap`` slots does not fit the free memory, less
+        ``reserve`` and a sixteenth of slack for the allocator, cut
+        ``qb_cap`` to the slots that fit (a multiple of SLOT_ALIGN) and
+        ``query_page`` in the same ratio, so a page's occupancy keeps its
+        share of the cap. Pages that fit keep both; where fewer than
+        SLOT_ALIGN slots fit, ValueError, naming the bytes needed and
+        free."""
+        free = free_bytes(self.device)
+        room = free - self.reserve
+        room -= room // 16
+        fit = (room - self.page_bytes(0, self.query_page)) \
+            // self._slot_bytes
+        fit = fit // SLOT_ALIGN * SLOT_ALIGN
+        if fit < SLOT_ALIGN:
+            need = self.page_bytes(SLOT_ALIGN, self.query_page)
+            raise ValueError(
+                f"a compact page of {SLOT_ALIGN} slots needs "
+                f"~{need / 1e9:.2f} GB on {self.device} beside the lists "
+                f"and {self.reserve / 1e9:.2f} GB reserved for the exact "
+                f"re-scorer, but {free / 1e9:.2f} GB are free")
+        if fit < self.qb_cap:
+            self.query_page = max(SLOT_ALIGN,
+                                  self.query_page * fit // self.qb_cap)
+            self.qb_cap = fit
 
     def _caps(self, rows: int | None = None):
         """The seven caps, or those a page of ``rows`` guides runs at:
@@ -397,6 +504,9 @@ class CompactIsslScorer:
         pending.append((pos, page, self._caps(page.shape[0]),
                         self.run_page(page, qb)))
         trace.count("compact.pages")
+        if trace.active():
+            trace.count("compact.plane_bytes",
+                        self.page_bytes(qb, page.shape[0]))
 
     def _halve(self, pos, page, pending):
         half = page.shape[0] // 2

@@ -16,7 +16,8 @@ page runs:
    slots through their segment cells, and segments with several
    neighbours are rescanned; the result is a compact (query, slice, site
    id) hit table. Every compaction is capped, so the page never waits on
-   the host; a population above its cap splits the page.
+   the host; a population above its cap grows the cap and runs the page
+   again, or splits the page where the grown one does not fit.
 4. **Replay** (:meth:`MxuIsslScorer._replay_page`, host numpy in f64):
    the hits of each query in the reference's scan order (slice, then site
    id), deduplicated by first occurrence, summed with the reference's
@@ -39,10 +40,12 @@ from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex, _lofirst_to_lex
 from .bits import collapse_pairs, popcount
 from .compact_decode import compact_indices
-from .issl_compact import ALIGN, RANK_BOUND
+from .issl_compact import (ALIGN, RANK_BOUND, AlignedLists, _quant_cap,
+                           aligned_layout, aligned_lists)
 from .mxu_finder import NeighbourPlanes, mxu_finder, signature_mask
 
 SLOT_ALIGN = 64       # slot count granule (the kernel's block of slots)
+NZ_CAP = 1 << 18      # the caps' scale (``nz_cap``): the single-slot cap
 # multi-neighbour segments rescanned per block, bounding the rescan's
 # temporaries to O(RESCAN_BLOCK x segw) however large its cap is
 RESCAN_BLOCK = 4096
@@ -94,7 +97,9 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
 
     # 1) single-neighbour slots: the rank sum IS the in-bucket rank
     with trace.span("mxu.decode.single"):
-        slot_cnt = planes.cnt.sum(2, dtype=torch.int64).reshape(-1)
+        # an int32 sum (a slot's neighbours are fewer than its bucket's
+        # entries): a wider one would copy the whole plane first
+        slot_cnt = planes.cnt.sum(2, dtype=torch.int32).reshape(-1).long()
         slot_pos = planes.rsum.sum(2).reshape(-1)
         one = slot_cnt == 1
         n1 = one.sum()
@@ -174,6 +179,71 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
     return header, hits
 
 
+def default_caps(nz_cap: int = NZ_CAP) -> tuple:
+    """The six compaction caps at scale ``nz_cap``: single-neighbour slots,
+    multi-neighbour slots, their nonzero segment cells, multi-neighbour
+    segments, rescan hits, and the final hit table."""
+    nz = int(nz_cap)
+    return (nz, max(1024, nz // 8), max(2048, nz // 4), max(1024, nz // 16),
+            max(2048, nz // 8), 2 * nz)
+
+
+def cut_caps(caps: tuple, n: int, S: int, nseg: int, segw: int) -> tuple:
+    """``caps`` cut to the most a page of ``n`` guides can fill (``n`` x S
+    live slots, ``nseg`` segments a slot, ``segw`` entries a segment), so a
+    short re-score call allocates no more than it can fill."""
+    slots = max(1, n * S)
+    cap1, capm = min(caps[0], slots), min(caps[1], slots)
+    capm2 = min(caps[2], capm * nseg)
+    capr = min(caps[3], capm2)
+    return (cap1, capm, capm2, capr, min(caps[4], capr * segw), caps[5])
+
+
+def page_bytes(qb: int, caps: tuple, S: int, B: int, nseg: int,
+               segw: int) -> int:
+    """Device bytes one page with ``qb`` slots per bucket allocates at
+    ``caps``: the finder's planes (int32 counts + int64 rank sums); per
+    slot the decode's totals, flags and compaction (~50 B); per segment
+    cell of a capped multi-neighbour slot its count, rank sum, index, flag
+    and compaction (~49 B); the rescan block; and the hit table."""
+    _cap1, capm, _capm2, capr, _capr2, hitcap = caps
+    planes = S * B * nseg * qb * 12
+    slots = S * B * qb * 50
+    cells = capm * nseg * 49
+    rescan = capr * segw + min(RESCAN_BLOCK, capr) * segw * 8 * 6
+    hits = 4 * hitcap * 8 * 3
+    return planes + slots + cells + rescan + hits
+
+
+def segments(index: IsslIndex, chunk: int) -> tuple[int, int, int]:
+    """(deepest bucket, segments a slot, entries a segment) of ``index``
+    at ``chunk``."""
+    lens = np.diff(index.bucket_offsets, axis=1)
+    maxblen = int(lens.max()) if lens.size else 0
+    return maxblen, max(8, -(-maxblen // chunk) * 8), chunk // 8
+
+
+def resident_bytes(index: IsslIndex, chunk: int, shared: bool) -> int:
+    """Device bytes of the engine's resident index: each slice's site
+    order and CSR offsets, and the packed lists and their bucket arrays
+    unless they are another engine's (``shared``)."""
+    S, B = index.slice_count, index.bucket_count
+    own = 0 if shared else S * (aligned_layout(index, chunk)[1] * 8 + B * 12)
+    return index.order.size * 4 + S * (B + 1) * 8 + own
+
+
+def added_bytes(index: IsslIndex, chunk: int = 4096,
+                shared: bool = False) -> int:
+    """Device bytes the engine adds beside another engine: its resident
+    index (with its own lists unless ``shared``) and its least page
+    (SLOT_ALIGN slots, as many guides, at the default caps)."""
+    S, B = index.slice_count, index.bucket_count
+    _maxblen, nseg, segw = segments(index, chunk)
+    caps = cut_caps(default_caps(), SLOT_ALIGN, S, nseg, segw)
+    return (resident_bytes(index, chunk, shared)
+            + page_bytes(SLOT_ALIGN, caps, S, B, nseg, segw))
+
+
 class MxuIsslScorer:
     """Bit-exact ISSL scorer: device neighbour finder + host f64 replay.
 
@@ -183,7 +253,8 @@ class MxuIsslScorer:
     def __init__(self, index: IsslIndex, max_dist: int | None = None,
                  method: str = "and", threshold: float = 75.0,
                  query_page: int = 32768, chunk: int = 4096,
-                 nz_cap: int = 1 << 18, device=None):
+                 nz_cap: int = NZ_CAP,
+                 lists: AlignedLists | None = None, device=None):
         self.device = resolve_device(device)
         if index.seq_length > 20:
             raise ValueError("the neighbour finder supports seq_length <= 20")
@@ -195,64 +266,60 @@ class MxuIsslScorer:
         self.threshold = float(threshold)
         self.query_page = int(query_page)
         self.chunk = int(chunk)
-        # static compaction capacities (an overflow splits the page in
-        # half): single-neighbour slots, multi-neighbour slots, their
-        # nonzero segment cells, multi-neighbour segments, rescan hits,
-        # and the final hit table
-        self.cap_single = int(nz_cap)
-        self.cap_mslot = max(1024, int(nz_cap) // 8)
-        self.cap_mcell = max(2048, int(nz_cap) // 4)
-        self.cap_rescan = max(1024, int(nz_cap) // 16)
-        self.cap_rhit = max(2048, int(nz_cap) // 8)
-        self.hit_cap = 2 * int(nz_cap)
+        # compaction capacities (:func:`default_caps`), which a page runs
+        # at cut to what its guides can fill (``_caps(n)``) and which grow
+        # to a page's populations where it overflows them
+        (self.cap_single, self.cap_mslot, self.cap_mcell, self.cap_rescan,
+         self.cap_rhit, self.hit_cap) = default_caps(nz_cap)
         self.S = index.slice_count
         self.B = index.bucket_count
+        self.maxblen, self.nseg, self.segw = segments(index, self.chunk)
+        # per-page populations (header) of every decoded (sub)page
+        self.page_stats: list[tuple[int, ...]] = []
+        self._precalc = None
+        with trace.span("mxu.build"):
+            self._build(index, lists)
 
-        lens = np.diff(index.bucket_offsets, axis=1)
-        maxblen = int(lens.max()) if lens.size else 0
-        # the JAX engine decodes ranks from f32 sums, exact below 2^22;
-        # this port's sums are int64 but keeps the same bound (lifting it
-        # is ROADMAP queue 1, item 2(d))
-        if maxblen >= RANK_BOUND:
+    def _build(self, index: IsslIndex, lists: AlignedLists | None):
+        """The resident index on the device: the packed lists (``lists``,
+        another engine's, when given: the compact engine's in the hybrid),
+        each slice's site order and CSR offsets, and the host's lex keys."""
+        # the port's sums and ranks are integers: the compact engine's
+        # bound (the JAX engine's f32 decode stops at 2^22; PARITY.md)
+        if self.maxblen >= RANK_BOUND:
             raise ValueError(
-                f"bucket with {maxblen:,} entries exceeds the MXU "
-                "engine's 2^22 rank-exactness bound; use IsslScorer "
-                "(ops/issl_flat.py) for this index")
-        self.segw = self.chunk // 8
-        self.nseg = max(8, -(-maxblen // self.chunk) * 8)
+                f"bucket with {self.maxblen:,} entries exceeds the MXU "
+                f"engine's rank-exactness bound ({RANK_BOUND:,} entries); "
+                "use IsslScorer (ops/issl_flat.py) for this index")
+        if lists is not None and (
+                lists.entries.device.type != self.device.type
+                or lists.boff.shape != (self.S, self.B)):
+            raise ValueError("the shared lists are not this index's on "
+                             f"{self.device}")
 
-        # memory BEFORE any device work: the resident index and one page's
-        # planes and decode buffers must fit beside whatever the device
+        # memory BEFORE any device work: what this engine adds to the
+        # device and its least page must fit beside whatever the device
         # already holds (the hybrid's fast engine); else the same
         # ValueError as the JAX engine's plane budget, so the hybrid and
-        # the pipeline fall back to another exact engine
-        alens = -(-lens // ALIGN) * ALIGN
-        epad = int(alens.sum(axis=1).max()) + self.chunk
-        epad = -(-epad // ALIGN) * ALIGN
-        resident = (self.S * epad * 8 + index.order.size * 4
-                    + self.S * (self.B + 1) * 8 + self.S * self.B * 12)
-        typical_qb = self._round_slots(2 * self.query_page // self.B)
+        # the pipeline fall back to another exact engine. Each call's
+        # pages are sized to the memory free then
+        resident = resident_bytes(index, self.chunk, lists is not None)
         free = free_bytes(self.device)
-        self._page_budget = free - resident
-        need = resident + self.page_bytes(typical_qb)
+        need = resident + self.page_bytes(SLOT_ALIGN, self._caps(SLOT_ALIGN))
         if need > free:
             raise ValueError(
                 f"the MXU engine needs ~{need / 1e9:.2f} GB on "
                 f"{self.device} (index {resident / 1e9:.2f} GB + one "
-                f"{self.query_page:,}-query page) but "
+                f"{SLOT_ALIGN}-slot page) but "
                 f"{free / 1e9:.2f} GB are free at {index.num_sites:,} "
                 "sites; use IsslScorer (ops/issl_flat.py) for this index")
 
         dev = self.device
-        arrs = index.device_arrays_aligned(align=ALIGN, tail=self.chunk)
-        lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
-        hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
-        self.entries = torch.as_tensor(
-            (lo | (hi << np.uint64(32))).view(np.int64), device=dev)
-        del lo, hi
-        self.bucket_offsets = torch.as_tensor(
-            arrs["bucket_offsets"][:, :self.B].astype(np.int64), device=dev)
-        self.bucket_lens = torch.as_tensor(arrs["bucket_lens"], device=dev)
+        if lists is None:
+            lists = aligned_lists(index, dev, tail=self.chunk)
+        self.entries = lists.entries
+        self.bucket_offsets = lists.boff
+        self.bucket_lens = lists.blen
         self.order = torch.as_tensor(index.order, device=dev)
         self.uoff = torch.as_tensor(
             index.bucket_offsets.astype(np.int64), device=dev)
@@ -261,9 +328,6 @@ class MxuIsslScorer:
         # assigned in lex order (isslCreateIndex.cpp:184-207), so the
         # id-ordered lex packing is ascending
         self._site_lex = self._lex(index.site_sigs)
-        self._precalc = None
-        # per-page populations (header) of every decoded (sub)page
-        self.page_stats: list[tuple[int, ...]] = []
 
     # -- sizes -------------------------------------------------------------
 
@@ -271,22 +335,32 @@ class MxuIsslScorer:
     def _round_slots(load: int) -> int:
         return max(SLOT_ALIGN, -(-int(load) // SLOT_ALIGN) * SLOT_ALIGN)
 
-    def _caps(self) -> tuple:
-        return (self.cap_single, self.cap_mslot, self.cap_mcell,
+    def _caps(self, n: int | None = None) -> tuple:
+        """The six caps, or those a page of ``n`` guides runs at
+        (:func:`cut_caps`)."""
+        caps = (self.cap_single, self.cap_mslot, self.cap_mcell,
                 self.cap_rescan, self.cap_rhit, self.hit_cap)
+        if n is None:
+            return caps
+        return cut_caps(caps, n, self.S, self.nseg, self.segw)
 
-    def page_bytes(self, qb: int) -> int:
-        """Device bytes one page with ``qb`` slots per bucket allocates:
-        the finder's planes (int32 counts + int64 rank sums), the decode's
-        slot totals, segment cells and rescan block, and the hit table."""
-        S, B = self.S, self.B
-        planes = S * B * self.nseg * qb * 12
-        slots = S * B * qb * (8 + 8 + 8 + 1) + qb * S * B * 4
-        cells = self.cap_mslot * self.nseg * (8 + 8 + 8 + 1)
-        rescan = (self.cap_rescan * self.segw
-                  + RESCAN_BLOCK * self.segw * 8 * 6)
-        hits = 4 * self.hit_cap * 8 * 3
-        return planes + slots + cells + rescan + hits
+    def _grow_caps(self, pops: tuple, caps: tuple, n: int, qb: int) -> bool:
+        """The caps after a page of ``n`` guides at ``qb`` slots overflowed
+        ``caps``: each cap a population passed grows to cover it (1.25x, to
+        the 4,096 grain; a population counted past an earlier overflow may
+        read low, so a page can grow more than once). Whether the page
+        fits the device's free memory at the grown caps."""
+        grown = tuple(_quant_cap(p) if p > c else c
+                      for p, c in zip(pops, caps))
+        (self.cap_single, self.cap_mslot, self.cap_mcell, self.cap_rescan,
+         self.cap_rhit, self.hit_cap) = (
+            max(g, c) for g, c in zip(grown, self._caps()))
+        return self.page_bytes(qb, self._caps(n)) <= self._room()
+
+    def page_bytes(self, qb: int, caps: tuple) -> int:
+        """Device bytes one page with ``qb`` slots per bucket allocates at
+        ``caps`` (:func:`page_bytes`)."""
+        return page_bytes(qb, caps, self.S, self.B, self.nseg, self.segw)
 
     # -- per-page planning (host) ------------------------------------------
 
@@ -334,23 +408,38 @@ class MxuIsslScorer:
             q_sig, qsp, planes, self.order, self.uoff, self.entries,
             self.bucket_offsets, self.bucket_lens, segw=self.segw,
             max_dist=self.max_dist, seq_length=self.index.seq_length,
-            caps=self._caps(), trim=self.device.type == "cpu")
+            caps=self._caps(q_sig.numel()),
+            trim=self.device.type == "cpu")
+
+    def _room(self) -> int:
+        """Bytes a page may take: the device's free memory less an eighth
+        of slack for the allocator."""
+        free = free_bytes(self.device)
+        return free - free // 8
 
     def _run_pages(self, sigs: np.ndarray) -> list[tuple]:
         """Finder + device decode over all pages of ``sigs``. Returns
-        per-(sub)page tuples ``(page, counts, hq, hs, hid)`` where
-        hq/hs/hid is the page's hit table (page-local query index, slice,
-        site id). A compaction overflow, or planes larger than the
-        device's room, splits a page and retries."""
+        per-(sub)page tuples ``(pos, page, counts, hq, hs, hid)``: ``page``
+        is ``sigs`` at positions ``pos`` and hq/hs/hid its hit table
+        (page-local query index, slice, site id). Pages, and the halves a
+        page splits into, take every P-th guide (P = ceil(n / query_page),
+        then 2), so that on a sorted batch each samples every bucket and
+        its slot count shrinks with it. Planes larger than the device's
+        room split a page; a compaction overflow grows the caps it passed
+        and runs the page again where it still fits, else splits it."""
         out = []
 
-        def run_one(page):
+        def halves(pos, page):
+            run_one(pos[0::2], page[0::2])
+            run_one(pos[1::2], page[1::2])
+
+        def run_one(pos, page):
             n = page.shape[0]
             with trace.span("mxu.plan"):
                 qsp_np, qb = self._plan(page)
-            if n >= 2 and self.page_bytes(qb) > self._page_budget:
-                run_one(page[:n // 2])
-                run_one(page[n // 2:])
+            caps = self._caps(n)
+            if n >= 2 and self.page_bytes(qb, caps) > self._room():
+                halves(pos, page)
                 return
             q_sig = self.query_tensor(page)
             qsp = torch.as_tensor(qsp_np, device=self.device)
@@ -358,21 +447,25 @@ class MxuIsslScorer:
             pops = tuple(int(x) for x in header.cpu())
             self.page_stats.append(pops)
             nh, n1, nm, nc, n2c, nrh = pops
-            if (n1 > self.cap_single or nm > self.cap_mslot
-                    or nc > self.cap_mcell or n2c > self.cap_rescan
-                    or nrh > self.cap_rhit or nh > self.hit_cap):
+            pops = (n1, nm, nc, n2c, nrh, nh)           # in the caps' order
+            if any(p > c for p, c in zip(pops, caps)):
+                if self._grow_caps(pops, caps, n, qb):
+                    run_one(pos, page)
+                    return
                 if n < 2:
                     raise RuntimeError("hit compaction overflow on a single "
                                        "query; raise the engine caps")
-                run_one(page[:n // 2])
-                run_one(page[n // 2:])
+                halves(pos, page)
                 return
             hq, hs, hid = hits[:, :nh].cpu().numpy()
             counts = np.bincount(hq, minlength=n).astype(np.float64)
-            out.append((page, counts, hq, hs, hid))
+            out.append((pos, page, counts, hq, hs, hid))
 
-        for j in range(0, sigs.shape[0], self.query_page):
-            run_one(sigs[j:j + self.query_page])
+        n = sigs.shape[0]
+        P = -(-n // self.query_page)
+        pos = np.arange(n)
+        for k in range(P):
+            run_one(pos[k::P], sigs[k::P])
         return out
 
     def neighbour_counts(self, query_sigs: np.ndarray) -> np.ndarray:
@@ -381,7 +474,10 @@ class MxuIsslScorer:
         sigs = np.asarray(query_sigs, dtype=np.uint64)
         if not sigs.size:
             return np.zeros(0, dtype=np.float64)
-        return np.concatenate([r[1] for r in self._run_pages(sigs)])
+        counts = np.zeros(sigs.shape[0], dtype=np.float64)
+        for pos, _page, c, *_hits in self._run_pages(sigs):
+            counts[pos] = c
+        return counts
 
     # -- hit decoding (host) -----------------------------------------------
 
@@ -530,10 +626,7 @@ class MxuIsslScorer:
         if n == 0:
             return mit, cfd
 
-        off = 0
-        for (page, counts, hq, hs, hid) in self._run_pages(sigs):
-            pn = page.shape[0]
-            rows = np.arange(off, off + pn)
+        for (rows, page, counts, hq, hs, hid) in self._run_pages(sigs):
             flagged = counts > 0
             found, sid_self, occ_self = self._self_lookup(page)
 
@@ -558,5 +651,4 @@ class MxuIsslScorer:
                         [hid, np.repeat(sid_self[fs], self.S)])
                 self._replay_page(page, hq, hs, hid, method, threshold,
                                   mit, cfd, qmap=rows)
-            off += pn
         return mit, cfd

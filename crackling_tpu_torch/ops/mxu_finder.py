@@ -160,24 +160,21 @@ def mxu_finder_plain(entries: torch.Tensor, boff: torch.Tensor,
     dev = entries.device
     S, B, qb = qsp.shape
     mask = signature_mask(seq_length)
-    cells = S * B * qb * nseg
-    cnt = torch.zeros(cells, dtype=torch.int64, device=dev)
-    rsum = torch.zeros(cells, dtype=torch.int64, device=dev)
+    # cells in the planes' (S, B, nseg, qb) order
+    cnt = torch.zeros(S * B * nseg * qb, dtype=torch.int64, device=dev)
+    rsum = torch.zeros(S * B * nseg * qb, dtype=torch.int64, device=dev)
     for pb in slot_entry_pairs(entries, boff, blen, q_sig, qsp):
         d = popcount(collapse_pairs((pb.e ^ pb.q) & mask))
         seg = pb.r // segw
         h = torch.nonzero((d >= 1) & (d <= max_dist)
                           & (seg < nseg)).flatten()
         rh = pb.r[h]
-        cell = pb.slot[h] * nseg + seg[h]
+        slot = pb.slot[h]
+        cell = ((slot // qb) * nseg + seg[h]) * qb + slot % qb
         cnt.index_add_(0, cell, torch.ones_like(rh))
         rsum.index_add_(0, cell, rh)
-
-    # (S*B*qb, nseg) slot-major -> (S, B, nseg, qb) segment-major
-    def planes(x):
-        return x.view(S, B, qb, nseg).permute(0, 1, 3, 2).contiguous()
-
-    return NeighbourPlanes(planes(cnt).int(), planes(rsum))
+    return NeighbourPlanes(cnt.view(S, B, nseg, qb).int(),
+                           rsum.view(S, B, nseg, qb))
 
 
 mxu_finder_plain.calls = 0

@@ -253,11 +253,14 @@ class ShardedCompactIsslScorer(_ShardedScorer):
 
     The rank-bound verdict is the mesh's: the largest bucket of any shard
     (of any process, :func:`_max_bucket`) must lie below the moment
-    decoder's 2^22 bound, as in the JAX engine, so every process builds
+    decoder's bound (``issl_compact.RANK_BOUND``, 2^30; the JAX engine's
+    is 2^22), as in the JAX engine, so every process builds
     the same engine and advertises the same band. Each shard engine then
     sizes its own moment planes and superchunks from its own buckets, and
     always runs the packed finder (``onehot=False``): the JAX sharded
-    program never selects the one-hot finder."""
+    program never selects the one-hot finder. Its pages reserve no room
+    for the hybrid's exact re-scorer, which over a sharded engine builds
+    lists of its own."""
 
     # the single-device compact engine's band; the merge adds one f64 sum
     score_band = 0.05
@@ -272,10 +275,12 @@ class ShardedCompactIsslScorer(_ShardedScorer):
         if deepest >= issl_compact.RANK_BOUND:
             raise ValueError(
                 f"bucket with {deepest:,} entries exceeds the moment "
-                "decoder's 2^22 rank-exactness bound")
+                "decoder's rank-exactness bound "
+                f"({issl_compact.RANK_BOUND:,} entries)")
         super().__init__(
             mesh, local_shards,
             lambda shard, dev: issl_compact.CompactIsslScorer(
                 shard, max_dist=max_dist, query_page=query_page, chunk=chunk,
                 qb_cap=qb_cap, nz_cap=nz_cap, caps=caps,
-                superchunk=superchunk, onehot=False, device=dev))
+                superchunk=superchunk, onehot=False, reserve=0,
+                device=dev))

@@ -86,7 +86,11 @@ def select_auto_engine(index, device) -> str:
     point, the hybrid compact engine (compact full scan on the GPU + exact
     re-score of near-threshold queries, verdict-exact for every method);
     on the CPU and at every other operating point, the general exact
-    engine (``xla``, ``ops/issl_flat.py``)."""
+    engine (``xla``, ``ops/issl_flat.py``). The compact engine takes
+    buckets of up to 2^30 entries (``issl_compact.RANK_BOUND``: int32
+    ranks; the JAX engine's f32 decode stops at 2^22), as deep as a
+    mammal's whole-genome index; past that, or where its lists do not fit
+    the card, ``_get_issl_scorer`` falls back to the dense engine."""
     if (torch.device(device).type != "cuda" or index.seq_length != 20
             or index.slice_width != 8):
         return "xla"
@@ -416,9 +420,11 @@ class Pipeline:
             # two-phase compact engine (finder kernel -> hit-moment
             # compaction -> sparse f32 scoring) wrapped in the hybrid's
             # exact near-threshold re-score for verdict exactness on all
-            # five methods. A bucket deeper than the moment decoder's 2^22
-            # rank bound (extreme low-complexity skew) falls back to the
-            # dense engine, which has no depth bound.
+            # five methods. A bucket past the moment decoder's rank bound
+            # (2^30 entries, int32 ranks; far deeper than a mammal's
+            # index), or lists, their build and a page that do not fit
+            # the device's free memory beside the exact re-scorer's room,
+            # fall back to the dense engine, which has no depth bound.
             from ..ops.hybrid import HybridIsslScorer
             from ..ops.issl_compact import CompactIsslScorer
 

@@ -26,7 +26,11 @@ it. Only aggregates are kept, so memory stays bounded over a genome.
 
 Span names start with their layer: ``compact.``, ``mxu.``, ``dense.``,
 ``scan.`` and ``mfe.`` on the scoring path, ``stage.`` for the pipeline's
-stages, ``index.`` and ``kernel.`` for set-up.
+stages, ``index.`` and ``kernel.`` for set-up (and ``mxu.build`` for the
+exact re-scorer's). Counters do too: ``compact.`` for the page program
+(``compact.plane_bytes``: each enqueued page's device bytes), ``hybrid.``
+for the re-score (``hybrid.exact_fallback``: each call that went to a host
+re-scorer).
 """
 
 from __future__ import annotations

@@ -225,13 +225,21 @@ def test_quant_cap_matches_jax():
 
 
 def test_rank_bound_guard_raises():
-    from crackling_tpu_torch.index.build import IsslIndex
+    """A bucket at the rank bound (2^30 entries: int32 ranks below the
+    empty-cell sentinel) is refused before any device work; 2^22, the JAX
+    engine's f32 bound, is not the port's
+    (``test_torch_hybrid.py::test_hybrid_over_compact_past_2_22``)."""
+    from types import SimpleNamespace
 
-    n = 1 << 22                      # one slice-0 bucket of 2^22 entries
-    sigs = (np.arange(n, dtype=np.uint64) << np.uint64(8)) | np.uint64(0x55)
-    index = IsslIndex(seq_length=20, slice_width=8, seq_count=n,
-                      site_sigs=sigs, occurrences=np.ones(n, np.uint32))
-    with pytest.raises(ValueError, match="2\\^22"):
+    from crackling_tpu_torch.ops.issl_compact import RANK_BOUND
+
+    deep = np.zeros((5, 257), dtype=np.int64)
+    deep[:, 1:] = RANK_BOUND
+    index = SimpleNamespace(slice_width=8, seq_length=20, max_dist=4,
+                            slice_count=5, bucket_count=256,
+                            bucket_offsets=deep)
+    assert 1 << 22 < RANK_BOUND < RANK_EMPTY
+    with pytest.raises(ValueError, match="rank-exactness bound"):
         CompactIsslScorer(index, max_dist=4, device="cpu")
 
 
@@ -458,3 +466,79 @@ def test_a_scaled_page_over_its_caps_grows_their_floor(direct_world,
     assert pop > 4096 and s.counters["compact.retries"] == 1
     assert sc._cap_floor[0] == _quant_cap(pop) == sc._caps(4096)[0]
     assert sc._caps() == base == sc._caps(1 << 20)
+
+
+# -- pages sized to the device's free memory -------------------------------
+
+@pytest.mark.parametrize("room", ["ample", "tight", "reserve", "refused",
+                                  "build", "least"])
+def test_pages_sized_to_free_memory(sorted_world, one_thread, monkeypatch,
+                                    room):
+    """Pages keep ``qb_cap`` and ``query_page`` where a page at the cap fits
+    the free memory; where it does not, less ``reserve`` (by default what
+    the hybrid's exact re-scorer adds beside these lists) and a sixteenth
+    of slack, ``qb_cap`` is cut to the slots that fit (a multiple of 64)
+    and ``query_page`` in the same ratio, with the same sums. Where the
+    lists, their build's transients and the least page do not fit, or
+    fewer than 64 slots do, the engine refuses the index with ValueError,
+    naming the bytes needed and free."""
+    from crackling_tpu_torch.ops import issl_compact
+    from crackling_tpu_torch.ops.issl_compact import (SLOT_ALIGN,
+                                                      aligned_layout)
+    from crackling_tpu_torch.ops.issl_mxu import added_bytes
+
+    index, batch, _ = sorted_world
+    kw = dict(max_dist=4, chunk=1024, query_page=512, qb_cap=128,
+              device="cpu")
+    probe = CompactIsslScorer(index, **kw)
+    shared = added_bytes(index, 1024, shared=True)
+    assert probe.reserve == shared > 0
+    need = (index.slice_count * aligned_layout(index, 1024)[1] * 12
+            + index.num_sites * 36 + probe.page_bytes(SLOT_ALIGN, SLOT_ALIGN))
+
+    def slots(k):       # the free memory that fits pages of k slots
+        return -(-probe.page_bytes(k, 512) * 16 // 15)
+
+    big = max(need, 1 << 40)
+    free, kw2, refusal = {
+        "ample": (None, {}, None),
+        "tight": (big, dict(reserve=big - slots(96)), None),
+        "reserve": (slots(96) + shared, {}, None),
+        "refused": (1 << 16, {}, "needs ~.* GB are free"),
+        "build": (need - 1, {}, "their build .* GB are free"),
+        "least": (big, dict(reserve=big - slots(SLOT_ALIGN - 1)),
+                  f"page of {SLOT_ALIGN} slots needs .* GB are free"),
+    }[room]
+    if room == "reserve":
+        assert free >= need     # the lists fit: only the pages are cut
+    if free is not None:
+        monkeypatch.setattr(issl_compact, "free_bytes", lambda d: free)
+    if refusal is not None:
+        with pytest.raises(ValueError, match=refusal):
+            CompactIsslScorer(index, **kw, **kw2)
+        return
+    sc = CompactIsslScorer(index, **kw, **kw2)
+    sums = sc.score_sums(batch)
+    want = (128, 512) if room == "ample" else (64, 256)
+    assert (sc.qb_cap, sc.query_page) == want
+    for got, ref in zip(sums, brute(index, batch)):
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tail", [0, 1024])
+def test_aligned_lists_match_the_index_layout(datasets, tail):
+    """The lists built on the device a slice at a time hold the index's
+    aligned layout (``IsslIndex.device_arrays_aligned``) exactly."""
+    from crackling_tpu_torch.ops.issl_compact import aligned_lists
+
+    index = port_index(datasets["deep"][0])
+    arrs = index.device_arrays_aligned(align=ALIGN, tail=tail)
+    got = aligned_lists(index, "cpu", tail=tail)
+    lo = arrs["list_lo"].view(np.uint32).astype(np.uint64)
+    hi = arrs["list_hi"].view(np.uint32).astype(np.uint64)
+    assert np.array_equal(got.entries.numpy(),
+                          (lo | (hi << np.uint64(32))).view(np.int64))
+    assert np.array_equal(got.occ.numpy(), arrs["list_occ"])
+    assert np.array_equal(got.boff.numpy(),
+                          arrs["bucket_offsets"][:, :index.bucket_count])
+    assert np.array_equal(got.blen.numpy(), arrs["bucket_lens"])

@@ -29,6 +29,7 @@ import torch
 
 from crackling_tpu_torch.index import build_index
 from crackling_tpu_torch.ops import compact_decode as cd
+from crackling_tpu_torch.ops.compact_finder import RANK_EMPTY, FinderOut
 from crackling_tpu_torch.ops.compact_rescan import (RescanRows,
                                                     compact_rescan_plain)
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer, plan_slots
@@ -352,3 +353,137 @@ def test_kernel_flags_each_overflowing_level_on_the_card(world, level):
     assert got.pops[level] > caps[level]
     assert got.pops[:level + 1].tolist() == true[:level + 1]
     assert len(_rows(got)) <= caps[5]
+
+
+# -- ranks past 2^22, near 2^31: the 64-bit offset path --------------------
+
+FAR_CHUNK = 1 << 24
+FAR_BOFF = 1 << 20                       # bucket 1's start in its row
+FAR_LEN = (1 << 31) - FAR_BOFF - 1024    # bucket 1: ranks near 2^31
+FAR_WIDTH = 4096                         # the rescan's scan width here
+FAR_ROW = 100                            # the >=3-hit chunk, ranks ~2^30
+
+
+def _far_page(superchunk, device):
+    """Hand-made cells of one slice and two buckets for two queries in
+    bucket 1 (bucket 0 holds padding), whose rows reach 2^31 entries:
+    query 0's bucket total of 6 hits descends to a 1-hit chunk at rank
+    2^22 + 3, a 2-hit chunk at ranks near 2^31 and a 3-hit chunk at
+    ranks ~2^30 (a rescan row); query 1's total of 1 hit, near 2^31, is
+    scored from the slot. The entries (16 GiB) and occurrences (8 GiB) are
+    allocated uninitialised, so the CPU pages in only the few windows
+    written: the hits, and the rescan row's window of non-hits.
+    Returns (q_sig, qsp, cells, boff, blen, entries, occ, hits), ``hits``
+    the (query, rank, signature, occurrence) of every hit."""
+    rng = np.random.default_rng(7)
+    nchmax = -(-FAR_LEN // FAR_CHUNK)
+    nsc = -(-nchmax // superchunk) if superchunk else 0
+    C = nchmax + nsc + 1
+    q = (rng.integers(0, 1 << 40, size=2).astype(np.int64) & ~0xFF) | 0x01
+
+    def near(sig, k):                      # k changed positions past slice 0
+        for p in rng.choice(np.arange(4, 20), size=k, replace=False):
+            sig ^= 1 << (2 * int(p))
+        return sig
+
+    ranks = {0: [(1 << 22) + 3, FAR_LEN - 7, FAR_LEN - 2,
+                 FAR_ROW * FAR_CHUNK + 5, FAR_ROW * FAR_CHUNK + 900,
+                 FAR_ROW * FAR_CHUNK + 4000],
+             1: [FAR_LEN - 100]}
+    hits = [(j, r, near(int(q[j]), 1 + (r % 3)), 1 + r % 5)
+            for j in (0, 1) for r in ranks[j]]
+    epad = FAR_BOFF + FAR_LEN + 1024
+    entries = torch.empty((1, epad), dtype=torch.int64)
+    occ = torch.empty((1, epad), dtype=torch.int32)
+    lo = FAR_BOFF + FAR_ROW * FAR_CHUNK
+    entries[0, lo:lo + FAR_WIDTH] = int(q[0]) ^ 0x5555555555  # distance 20
+    occ[0, lo:lo + FAR_WIDTH] = 1
+    for _j, r, sig, w in hits:
+        entries[0, FAR_BOFF + r] = sig
+        occ[0, FAR_BOFF + r] = w
+
+    shape = (1, 2, C, 2)
+    cnt = np.zeros(shape, np.int64)
+    rmin = np.full(shape, RANK_EMPTY, np.int64)
+    rmax = np.full(shape, -1, np.int64)
+    for j, r, _sig, _w in hits:
+        ch = r // FAR_CHUNK
+        cells = [ch, C - 1] + ([nchmax + ch // superchunk] if superchunk
+                               else [])
+        for c in cells:
+            cnt[0, 1, c, j] += 1
+            rmin[0, 1, c, j] = min(rmin[0, 1, c, j], r)
+            rmax[0, 1, c, j] = max(rmax[0, 1, c, j], r)
+    rsum = np.zeros(shape, np.int64)
+    fo = FinderOut(*(torch.as_tensor(x).to(t) for x, t in
+                     ((cnt, torch.int32), (rsum, torch.int64),
+                      (rmin, torch.int32), (rmax, torch.int32))),
+                   nchmax, nsc)
+    qsp = torch.tensor([[[2, 2], [0, 1]]], dtype=torch.int32)
+    boff = torch.tensor([[0, FAR_BOFF]], dtype=torch.int64)
+    blen = torch.tensor([[0, FAR_LEN]], dtype=torch.int32)
+    args = [torch.as_tensor(q), qsp, fo, boff, blen, entries, occ]
+    if device != "cpu":
+        args = [a.to(device) if isinstance(a, torch.Tensor) else
+                a._replace(**{f: getattr(a, f).to(device)
+                              for f in ("cnt", "rsum", "rmin", "rmax")})
+                for a in args]
+    return (*args, hits)
+
+
+def _far_sums(q_sig, hits):
+    """The hits' f32 terms times their occurrences, summed in f64 per
+    query, from the port's oracle."""
+    precalc = precalculated_mit_scores(20, 4)
+    pen = cfd_pos_penalties().astype(np.float32)
+    pam = np.float32(cfd_pam_penalties()[CFD_PAM_NGG_INDEX])
+    mit, cfd = np.zeros(3), np.zeros(3)
+    for j, _r, e, w in hits:
+        qs = int(q_sig[j])
+        cm = int(collapse_mismatches(np.uint64((e ^ qs) & SIG40)))
+        mit[j] += float(np.float32(np.float32(precalc.get(cm, 0.0)) * w))
+        cfd[j] += float(np.float32(_cfd_one(qs, e, pen, pam) * w))
+    return mit, cfd
+
+
+def _far_decode(superchunk, device):
+    from crackling_tpu_torch.ops.issl_compact import decode_score, \
+        score_tables
+
+    *args, hits = _far_page(superchunk, device)
+    header, mit, cfd = decode_score(
+        *args, chunk=FAR_CHUNK, superchunk=superchunk, max_dist=4,
+        caps=WIDE, tabs=score_tables(4, device), scan_width=FAR_WIDTH,
+        trim=device == "cpu", rescan_block=4)
+    d = cd.compact_decode(*args, chunk=FAR_CHUNK, superchunk=superchunk,
+                          caps=WIDE, tabs=score_tables(4, device),
+                          trim=device == "cpu")
+    return args[0].cpu().numpy(), hits, header.cpu(), mit.cpu(), \
+        cfd.cpu(), d
+
+
+@pytest.mark.parametrize("superchunk", [0, 16])
+def test_decode_and_rescan_at_ranks_near_2_31(superchunk):
+    q, hits, header, mit, cfd, d = _far_decode(superchunk, "cpu")
+    want_mit, want_cfd = _far_sums(q, hits)
+    np.testing.assert_allclose(mit.numpy(), want_mit[:2], rtol=1e-12)
+    np.testing.assert_allclose(cfd.numpy(), want_cfd[:2], rtol=1e-12)
+    # 2 slots scored or walked, the 3-hit chunk one rescan row whose start
+    # and live length are past 2^31 and 2^30 exactly
+    assert header[0] == 1 and header[1] == 1 and header[5] == 1
+    live = d.rows.ridx >= 0
+    assert d.rows.start[live].tolist() == [FAR_BOFF + FAR_ROW * FAR_CHUNK]
+    assert d.rows.live[live].tolist() == [FAR_LEN - FAR_ROW * FAR_CHUNK]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("superchunk", [0, 16])
+def test_kernels_at_ranks_near_2_31_on_the_card(superchunk):
+    _on_card()
+    want = _far_decode(superchunk, "cpu")
+    got = _far_decode(superchunk, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[3:5], want[3:5]):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-9)
+    assert _rows(got[5]) == _rows(want[5])

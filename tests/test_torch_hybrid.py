@@ -129,3 +129,41 @@ def test_hybrid_matches_reference_binary(world, ref_bins, tmp_path, method,
         if on:
             assert ["%f" % x for x in a[near]] == \
                 ["%f" % x for x in b[near]]
+
+
+@pytest.mark.parametrize("exact", ["mxu", "native", "flat"])
+def test_rescorer_shares_the_compact_lists_and_counts_fallbacks(world,
+                                                                exact):
+    """Over the compact engine the MXU re-scorer reads the compact
+    engine's lists (the same storage: one copy on the device) and no call
+    counts ``hybrid.exact_fallback``; each call that goes to a host link
+    of the chain counts one."""
+    from crackling_tpu_torch import trace
+
+    index, queries = world
+    hy = _hybrid(port_index(index), "compact", method="and",
+                 threshold=75.0, band=np.inf)
+    if exact == "native":
+        hy._exact = hybrid._NativeExact(hy.index, 4, 75.0, "and")
+    elif exact == "flat":
+        hy._exact = IsslScorer(hy.index, max_dist=4, method="and",
+                               threshold=75.0, dtype=torch.float64,
+                               device="cpu")
+    trace.enable()
+    try:
+        got = [hy.score(queries), hy.score(queries[:8])]
+        s = trace.session()
+    finally:
+        trace.disable()
+    ref = score_exact(index, queries, 4, 75.0, "and")
+    assert np.array_equal(np.stack(got[0]), np.stack(ref))
+    assert s.counters["hybrid.rescored"] == queries.shape[0] + 8
+    if exact == "mxu":
+        mxu, lists = hy._exact, hy.dense.lists
+        assert mxu.entries.data_ptr() == lists.entries.data_ptr()
+        assert mxu.bucket_offsets.data_ptr() == lists.boff.data_ptr()
+        assert mxu.bucket_lens.data_ptr() == lists.blen.data_ptr()
+        assert s.spans["mxu.build"].count == 1
+        assert "hybrid.exact_fallback" not in s.counters
+    else:
+        assert s.counters["hybrid.exact_fallback"] == 2

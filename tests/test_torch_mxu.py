@@ -134,7 +134,8 @@ CASES = {
     "max_dist=2": dict(max_dist=2, query_page=512),
     # three pages of 64
     "multi-page": dict(max_dist=4, query_page=64),
-    # caps far below the page's populations: the page splits and retries
+    # caps far below the page's populations: they grow and the page runs
+    # again
     "cap-overflow": dict(max_dist=4, query_page=512, nz_cap=64),
 }
 
@@ -152,16 +153,22 @@ def test_scores_equal_oracle(data, case):  # noqa: F811
     assert np.array_equal(mit, ref_mit)
     assert np.array_equal(cfd, ref_cfd)
     if case == "cap-overflow":
-        assert len(eng.page_stats) > 1
-        assert any(p[1] > eng.cap_single for p in eng.page_stats)
+        # the first run's single-neighbour slots passed the cap of 64 it
+        # started at, which grew to hold them; the page was not split
+        assert len(eng.page_stats) > 1 and eng.page_stats[0][1] > 64
+        assert eng.cap_single >= eng.page_stats[-1][1] > 64
+        assert len(eng._run_pages(queries)) == 1
 
 
-def test_page_larger_than_device_room_splits(data):  # noqa: F811
+def test_page_larger_than_device_room_splits(data,  # noqa: F811
+                                              monkeypatch):
     index, queries = data
     eng = MxuIsslScorer(port_index(index), method="avg", threshold=75.0,
                         device="cpu", **KW)
-    # no page fits: each halves down to one query, which runs regardless
-    eng._page_budget = eng.page_bytes(SLOT_ALIGN) - 1
+    # no page fits the room left after construction: each halves down to
+    # one query, which runs regardless
+    room = eng.page_bytes(SLOT_ALIGN, eng._caps(1)) - 1
+    monkeypatch.setattr(port_mxu, "free_bytes", lambda device: room)
     queries = queries[190:202]
     mit, cfd = eng.score(queries)
     ref_mit, ref_cfd = score_exact(index, queries, 4, 75.0, "avg")
@@ -170,13 +177,17 @@ def test_page_larger_than_device_room_splits(data):  # noqa: F811
 
 
 def test_rank_bound_guard_raises():
-    from crackling_tpu_torch.index.build import IsslIndex
+    """A bucket at the rank bound (2^30 entries: int32 ranks) is refused
+    before any device work; 2^22, the JAX engine's f32 bound, is not the
+    port's (``test_torch_hybrid.py::test_hybrid_over_compact_past_2_22``)."""
+    from types import SimpleNamespace
 
-    n = 1 << 22                      # one slice-0 bucket of 2^22 entries
-    sigs = (np.arange(n, dtype=np.uint64) << np.uint64(8)) | np.uint64(0x55)
-    index = IsslIndex(seq_length=20, slice_width=8, seq_count=n,
-                      site_sigs=sigs, occurrences=np.ones(n, np.uint32))
-    with pytest.raises(ValueError, match="2\\^22"):
+    deep = np.zeros((5, 257), dtype=np.int64)
+    deep[:, 1:] = port_mxu.RANK_BOUND
+    index = SimpleNamespace(seq_length=20, max_dist=4, slice_count=5,
+                            bucket_count=256, bucket_offsets=deep)
+    assert port_mxu.RANK_BOUND > 1 << 22
+    with pytest.raises(ValueError, match="rank-exactness bound"):
         MxuIsslScorer(index, max_dist=4, device="cpu")
 
 
@@ -202,3 +213,23 @@ def test_finder_off_the_cpu_never_runs_the_plain_version():
                    t((1, 1, SLOT_ALIGN), torch.int32), segw=4, nseg=2,
                    max_dist=1, seq_length=20)
     assert mxu_finder_plain.calls == calls
+
+
+def test_auto_caps_grow_instead_of_splitting(data):  # noqa: F811
+    """A page over its caps grows the caps it passed and runs again whole,
+    however far below its populations they start, and every cap ends at
+    or above its population."""
+    index, queries = data
+    queries = queries[:150]
+    eng = MxuIsslScorer(port_index(index), method="and", threshold=75.0,
+                        chunk=1024, query_page=512, device="cpu")
+    eng.cap_single = eng.cap_mslot = eng.cap_mcell = 8
+    eng.cap_rescan = eng.cap_rhit = eng.hit_cap = 8
+    out = eng._run_pages(queries)
+    assert len(out) == 1 and len(eng.page_stats) > 1     # grown, not split
+    nh, n1, nm, nc, n2c, nrh = eng.page_stats[-1]
+    assert all(c >= p for c, p in zip(eng._caps(150),
+                                      (n1, nm, nc, n2c, nrh, nh)))
+    mit, cfd = eng.score(queries)
+    ref_mit, ref_cfd = score_exact(index, queries, 4, 75.0, "and")
+    assert np.array_equal(mit, ref_mit) and np.array_equal(cfd, ref_cfd)

@@ -233,7 +233,10 @@ def test_onehot_choice(datasets, monkeypatch, capsys, case):
         monkeypatch.setenv("CRACKLING_TPU_COMPACT_PLANE_BUDGET",
                            str(jax_bytes - 1))
     elif case == "variable-no-memory":
-        monkeypatch.setattr(port_compact, "free_bytes", lambda device: 0)
+        # room for the lists and a page, not for the port's planes
+        planes = probe.S * probe.entries.shape[1] * LANES
+        monkeypatch.setattr(port_compact, "free_bytes",
+                            lambda device: planes - 1)
     elif case == "explicit-off":
         kw = dict(onehot=False)
     capsys.readouterr()
@@ -262,10 +265,16 @@ def test_explicit_onehot_over_free_memory_raises(datasets, monkeypatch):
     import crackling_tpu_torch.ops.issl_compact as port_compact
 
     index, _ = datasets["data"]
-    monkeypatch.setattr(port_compact, "free_bytes", lambda device: 0)
+    pidx = port_index(index)
+    probe = CompactIsslScorer(pidx, max_dist=4, chunk=1024, device="cpu",
+                              onehot=False)
+    # room for the lists and a page, not for the port's planes
+    planes = probe.S * probe.entries.shape[1] * LANES
+    monkeypatch.setattr(port_compact, "free_bytes",
+                        lambda device: planes - 1)
     with pytest.raises(ValueError, match="one-hot planes need"):
-        CompactIsslScorer(port_index(index), max_dist=4, chunk=1024,
-                          device="cpu", onehot=True)
+        CompactIsslScorer(pidx, max_dist=4, chunk=1024, device="cpu",
+                          onehot=True)
 
 
 # -- Crackling with the variable set -----------------------------------------

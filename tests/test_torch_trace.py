@@ -66,6 +66,13 @@ def scorer(index, **kw):
                              **kw)
 
 
+def plane_bytes(sc, sigs, size):
+    """``compact.plane_bytes`` of pages of ``size`` consecutive guides of
+    ``sigs``: each page's device bytes at the slots its plan gives."""
+    pages = [sigs[i:i + size] for i in range(0, sigs.shape[0], size)]
+    return sum(sc.page_bytes(sc._plan(p)[0], p.shape[0]) for p in pages)
+
+
 def test_off_records_nothing(world, monkeypatch):
     index, crowd, queries = world
     sc = scorer(index, query_page=64, qb_cap=QB_CAP)
@@ -101,7 +108,9 @@ def test_profiler_session_matches_events(world):
     s = trace.session()
     pages = -(-queries.shape[0] // 64)
     assert s.counters == {"compact.occupancy_calls": pages,
-                          "compact.pages": pages}
+                          "compact.pages": pages,
+                          "compact.plane_bytes": plane_bytes(sc, queries,
+                                                             64)}
     want = {"compact.score": (1, None),
             "compact.dispatch": (pages, "compact.score"),
             "compact.occupancy": (pages, "compact.dispatch"),
@@ -142,7 +151,9 @@ def test_counters_on_a_halved_sorted_batch(world):
     assert s.counters == {"compact.occupancy_calls":
                           sum(2 * n - 1 for n in leaves),
                           "compact.splits": sum(n - 1 for n in leaves),
-                          "compact.pages": sum(leaves)}
+                          "compact.pages": sum(leaves),
+                          "compact.plane_bytes": plane_bytes(sc, crowd,
+                                                             QB_CAP)}
     assert len(sc.page_stats) == sum(leaves)
     assert s.spans["compact.occupancy"].count == \
         s.counters["compact.occupancy_calls"]
