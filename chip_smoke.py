@@ -544,7 +544,8 @@ def phase_build():
     from crackling_tpu_torch.ops.kernel_build import build_library
 
     sources = ("compact_finder.cu", "compact_onehot.cu", "mxu_finder.cu",
-               "fullscan.cu", "compact_rescan.cu", "compact_decode.cu")
+               "fullscan.cu", "compact_rescan.cu", "compact_decode.cu",
+               "mxu_replay.cu")
     with ThreadPoolExecutor(len(sources) + 1) as ex:
         kerns = [ex.submit(build_library, src) for src in sources]
         host = ex.submit(native.get_lib)
@@ -1667,8 +1668,9 @@ def phase_mxu_page(dev, eng, page, card):
     walls = host_walls(lambda: eng.score(page), dev)
     page_s = float(np.median(walls))
     # the page's parts, host clock, medians of 3: plan + finder + decode
-    # (with the hit table's copy to the host), plan alone, self-lookup;
-    # the replay is what the page spends beyond them
+    # (the hit table stays on the card), plan alone, self-lookup; the
+    # replay (its launch and the sums' copy) is what the page spends
+    # beyond them
     device_s = float(np.median(host_walls(lambda: eng._run_pages(page),
                                           dev)))
     plan_ms = float(np.median(host_walls(lambda: eng._plan(page), dev))) \
@@ -1676,15 +1678,10 @@ def phase_mxu_page(dev, eng, page, card):
     lookup_ms = float(np.median(host_walls(lambda: eng._self_lookup(page),
                                            dev))) * 1e3
     stats = eng.page_stats[-1]
-    # the replay's rows: the decoded hits and every flagged query's
-    # self-hit once per slice
-    runs = eng._run_pages(page)
-    counts = np.zeros(page.shape[0])
-    for pos, _sub, c, *_hits in runs:
-        counts[pos] = c
-    flagged = counts > 0
-    replay_rows = (sum(r[3].size for r in runs)
-                   + int((flagged & eng._self_lookup(page)[0]).sum()) * eng.S)
+    # the replay's rows: the decoded hits and each query's own site once
+    flagged = eng.neighbour_counts(page) > 0
+    replay_rows = (sum(r[3].shape[1] for r in eng._run_pages(page))
+                   + int(eng._self_lookup(page)[0].sum()))
     q, qsp = mxu_inputs(eng, page)
     planes = eng.finder(q, qsp)
     neighbours = int(planes.cnt.sum())
@@ -1831,6 +1828,109 @@ def phase_sharded_page(dev, index, queries, card):
             phase_profile(dev, lambda: sc.score_sums(queries), "compact.")
         del sc
     return launches
+
+
+# a mouse re-score page: ~31,000 guides a batch in 4 MXU pages, ~198
+# distinct sites a guide, each found in ~1.5 slices
+REPLAY_QUERIES = 7750
+REPLAY_ROWS = 300
+REPLAY_CROWDED = 4          # guides with 3,000 rows: past shared memory
+REPLAY_LIST = 1 << 27       # entries of the flat list the rows point into
+
+
+def replay_page(n=REPLAY_QUERIES, rows=REPLAY_ROWS, seed=SEED + 5,
+                crowded=REPLAY_CROWDED):
+    """A synthetic page for the exact replay, on the CPU: ``n`` guides with
+    ``rows`` +- 50 hit rows each (the last ``crowded`` with 3,000),
+    each row a site 0-4 bases from its guide at a distinct position
+    (spread by an odd multiplier) of a 2^27-entry list (1 GB, far past the
+    L2), in a random slice with a distinct site id, the table shuffled; a
+    tenth of the guides have their own site. Returns the replay's
+    arguments before the tables: (hits, q_sig, own, entries, occ)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.randint(rows - 50, rows + 51, (n,), generator=g)
+    counts[n - crowded:] = 3000
+    H = int(counts.sum())
+    hq = torch.repeat_interleave(torch.arange(n), counts)
+    q_sig = torch.randint(0, 1 << 40, (n,), generator=g)
+    sig = q_sig[hq].clone()
+    for k, share in enumerate((1.0, 0.8, 0.5, 0.3)):
+        p = torch.randint(0, 20, (H,), generator=g)
+        d = torch.randint(1, 4, (H,), generator=g)
+        sig ^= torch.where(torch.rand(H, generator=g) < share,
+                           d << (2 * p), 0)
+    pos = (torch.arange(H) * 2654435761) % REPLAY_LIST
+    entries = torch.full((REPLAY_LIST,), -1, dtype=torch.int64)
+    entries[pos] = sig
+    occ = torch.randint(1, 4, (REPLAY_LIST,), generator=g,
+                        dtype=torch.int32)
+    hits = torch.stack([hq, torch.randint(0, 5, (H,), generator=g),
+                        torch.randperm(H, generator=g), pos])
+    hits = hits[:, torch.randperm(H, generator=g)].contiguous()
+    own = torch.stack([
+        torch.where(torch.rand(n, generator=g) < 0.1, H + torch.arange(n),
+                    -1),
+        torch.randint(1, 4, (n,), generator=g)])
+    return hits, q_sig, own, entries, occ
+
+
+def replay_bound_ms(hit_rows, n):
+    """Least time for the replay's bytes: per row its query read by the
+    count, its four words by the scatter, its key and position written and
+    read back, and its site's signature, count and MIT table value
+    gathered (92 B); per guide its own site twice, signature, count,
+    offsets and sums (~92 B); over HBM bandwidth."""
+    return (92 * hit_rows + 92 * n) / H100_BYTES_PER_S * 1e3
+
+
+def phase_mxu_replay(dev, card):
+    """The exact replay kernel on a mouse-like page (``replay_page``): its
+    sums against the plain version's with max error 0 for all five
+    methods, its spilled guides, its time (CUDA events) beside its byte
+    bound and the plain version's (host clock); then its time on the same
+    page with no crowded guide, all in shared memory."""
+    import torch
+
+    from crackling_tpu_torch.ops import mxu_replay as mr
+
+    cpu_args = replay_page()
+    dev_args = [t.to(dev) for t in cpu_args]
+    tabs_cpu = mr.replay_tables(20, 4, "cpu")
+    tabs = mr.replay_tables(20, 4, dev)
+    hit_rows, n = cpu_args[0].shape[1], cpu_args[1].numel()
+    err, plain_ms, spilled = 0.0, {}, None
+    for method, thr in METHODS:
+        kw = dict(method=method, maximum_sum=mr.maximum_sum(thr),
+                  slice_width=8)
+        t = time.perf_counter()
+        want = mr.mxu_replay_plain(*cpu_args, tabs_cpu, **kw)
+        plain_ms[method] = (time.perf_counter() - t) * 1e3
+        got = mr.mxu_replay(*dev_args, tabs, **kw)
+        err = max(err, float((got.sums.cpu() - want.sums).abs().max()))
+        if not torch.equal(got.sums.cpu(), want.sums):
+            fail(f"replay kernel sums differ from the plain version's "
+                 f"({method}): max error {err}")
+        spilled = int(got.spilled)
+        if spilled != int(want.spilled) or spilled != REPLAY_CROWDED:
+            fail(f"the replay kernel spilled {spilled} guides, the plain "
+                 f"version counts {int(want.spilled)}")
+    kw = dict(method="and", maximum_sum=mr.maximum_sum(75.0), slice_width=8)
+    ms = timed_ms(lambda: mr.mxu_replay(*dev_args, tabs, **kw), 10, dev)
+    bound_ms = replay_bound_ms(hit_rows, n)
+    flat = [t.to(dev) for t in replay_page(crowded=0)]
+    flat_ms = timed_ms(lambda: mr.mxu_replay(*flat, tabs, **kw), 10, dev)
+    flat_bound_ms = replay_bound_ms(flat[0].shape[1], n)
+    del flat
+    emit({"phase": "mxu_replay", "card": card, "device": str(dev),
+          "queries": n, "hit_rows": hit_rows, "spilled": spilled,
+          "methods": [m for m, _ in METHODS], "max_abs_err": err,
+          "kernel_ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "plain_ms": plain_ms, "uncrowded_kernel_ms": flat_ms,
+          "uncrowded_bound_ms": flat_bound_ms})
+    return err, dict(ms=ms, plain_ms=plain_ms["and"], bound_ms=bound_ms,
+                     **bound_label("bytes"))
 
 
 def phase_mxu_small(dev):
@@ -2525,6 +2625,7 @@ def kernel_counters():
     from crackling_tpu_torch.ops import compact_rescan as cr
     from crackling_tpu_torch.ops import fullscan as fs
     from crackling_tpu_torch.ops import mxu_finder as mf
+    from crackling_tpu_torch.ops import mxu_replay as mr
 
     return {"compact_finder": (cf.compact_finder, cf.compact_finder_plain),
             "compact_finder_onehot": (co.compact_finder_onehot,
@@ -2532,6 +2633,7 @@ def kernel_counters():
             "compact_decode": (cd.compact_decode, cd.compact_decode_plain),
             "compact_rescan": (cr.compact_rescan, cr.compact_rescan_plain),
             "mxu_finder": (mf.mxu_finder, mf.mxu_finder_plain),
+            "mxu_replay": (mr.mxu_replay, mr.mxu_replay_plain),
             "dense_scan": (fs.dense_scan, fs.dense_scan_plain),
             "bucket_scan": (fs.bucket_scan, fs.bucket_scan_plain)}
 
@@ -3121,6 +3223,8 @@ def main():
     phase_profile(dev, lambda: eng._run_pages(page), "mxu.")
     del eng
     torch.cuda.empty_cache()
+    replay_err, replay = phase_mxu_replay(dev, card)
+    torch.cuda.empty_cache()
     phase_mxu_small(dev)
     phase_flat(dev, index, queries)
 
@@ -3154,6 +3258,7 @@ def main():
     same_verdicts(rows_auto, rows, "auto with the one-hot finder")
     launches, rows = phase_pipeline(dev, files, "exact")
     mxu["launches"] = launches["mxu_finder"]
+    replay["launches"] = launches["mxu_replay"]
     same_verdicts(rows_auto, rows, "exact")
     launches, rows = phase_pipeline(dev, files, "dense")
     dense_stats["launches"] = launches["dense_scan"]
@@ -3204,7 +3309,11 @@ def main():
         {"name": "compact_decode", "route": "cuda",
          "source": "crackling_tpu_torch/csrc/compact_decode.cu",
          "replaces": "crackling_tpu/ops/issl_compact.py:884",
-         "max_abs_err": decode_err, "library_ms": None, **decode}]})
+         "max_abs_err": decode_err, "library_ms": None, **decode},
+        {"name": "mxu_replay", "route": "cuda",
+         "source": "crackling_tpu_torch/csrc/mxu_replay.cu",
+         "replaces": "crackling_tpu/ops/issl_mxu.py::_replay_page (host)",
+         "max_abs_err": replay_err, "library_ms": None, **replay}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

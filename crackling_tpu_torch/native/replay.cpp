@@ -4,7 +4,8 @@
 // in (slice, in-bucket) order with a score-visible early exit
 // (isslScoreOfftargets.cpp:463-496): the reported score is
 // 10000/(100+partial_sum) frozen at the exit point. The per-hit MIT/CFD
-// contributions are vectorized in Python (ops/issl_mxu.py:_replay_page);
+// contributions are vectorized in PyTorch (the exact replay's plain
+// version, ops/mxu_replay.py:mxu_replay_plain, which the CPU engine runs);
 // this translation unit runs ONLY the running-sum/early-exit recurrence —
 // the one part that is inherently sequential per query — in C, parallel
 // across queries (each query's sum is a single thread's work, like the

@@ -1,4 +1,4 @@
-"""The bit-exact ISSL engine: device neighbour finder + host f64 replay.
+"""The bit-exact ISSL engine: device neighbour finder, decode and f64 replay.
 
 The PyTorch port of crackling_tpu/ops/issl_mxu.py (``engine = exact`` /
 ``mxu``, and the hybrid's first exact re-scorer). Its scores equal
@@ -18,11 +18,12 @@ page runs:
    id) hit table. Every compaction is capped, so the page never waits on
    the host; a population above its cap grows the cap and runs the page
    again, or splits the page where the grown one does not fit.
-4. **Replay** (:meth:`MxuIsslScorer._replay_page`, host numpy in f64):
-   the hits of each query in the reference's scan order (slice, then site
-   id), deduplicated by first occurrence, summed with the reference's
-   early exit. Queries with no neighbour score from their own site alone,
-   found by a binary search over the lexicographically sorted sites.
+4. **Replay** (:func:`~.mxu_replay.mxu_replay`, the hand-written Hopper
+   kernel on CUDA): each query's hits and its own site, found by a binary
+   search over the lexicographically sorted sites on the host, in the
+   reference's scan order (slice, then site id), deduplicated by first
+   occurrence, summed in f64 with the reference's early exit. Only the
+   (n, 2) sums come back to the host.
 
 Discovery parity: the reference finds an off-target only through a slice
 that matches exactly (isslScoreOfftargets.cpp:330-344), and the finder
@@ -35,7 +36,6 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..codec import popcount64
 from ..device import free_bytes, resolve_device
 from ..index.build import IsslIndex, _lofirst_to_lex
 from .bits import collapse_pairs, popcount
@@ -43,6 +43,8 @@ from .compact_decode import compact_indices
 from .issl_compact import (ALIGN, RANK_BOUND, AlignedLists, _quant_cap,
                            aligned_layout, aligned_lists)
 from .mxu_finder import NeighbourPlanes, mxu_finder, signature_mask
+from .mxu_replay import maximum_sum, mxu_replay, replay_tables, \
+    scratch_bytes
 
 SLOT_ALIGN = 64       # slot count granule (the kernel's block of slots)
 NZ_CAP = 1 << 18      # the caps' scale (``nz_cap``): the single-slot cap
@@ -66,9 +68,10 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
     aligned packed lists, which the rescan reads. Returns (header, hits):
     header (6,) int64 populations (hits, single-neighbour slots,
     multi-neighbour slots, their nonzero segments, multi-neighbour
-    segments, rescan hits), and hits (3, <= hitcap) int64 rows (query,
-    slice, site id), valid in their first ``header[0]`` columns unless a
-    population exceeds its cap."""
+    segments, rescan hits), and hits (4, <= hitcap) int64 rows (query,
+    slice, site id, the site's flat position in ``entries``), valid in
+    their first ``header[0]`` columns unless a population exceeds its
+    cap."""
     dev = q_sig.device
     n = q_sig.numel()
     S, B, nseg, qb = planes.cnt.shape
@@ -95,6 +98,11 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
         # the aligned ones)
         return order_f[s * N + uoff_f[s * (B + 1) + b] + k].long()
 
+    def entry_at(s, b, k):
+        """The flat position of rank ``k`` of bucket (s, b) in the aligned
+        lists, where the replay reads the site's signature and count."""
+        return s * epad + boff_f[s * B + b] + k
+
     # 1) single-neighbour slots: the rank sum IS the in-bucket rank
     with trace.span("mxu.decode.single"):
         # an int32 sum (a slot's neighbours are fewer than its bucket's
@@ -107,7 +115,8 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
         v1 = sidx >= 0
         si = sidx.clamp(min=0)
         s1, b1 = split_slot(si)
-        hid1 = order_at(s1, b1, torch.where(v1, slot_pos[si], 0))
+        r1 = torch.where(v1, slot_pos[si], 0)
+        hid1, hpos1 = order_at(s1, b1, r1), entry_at(s1, b1, r1)
         hq1 = qsp_f[si]
 
     # 2) multi-neighbour slots -> their nonzero segment cells; a
@@ -134,7 +143,8 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
         sM, bM = split_slot(mslot)
         hqM = qsp_f[mslot]
         c1 = vz & (mcnt == 1)
-        hidM = order_at(sM, bM, torch.where(c1, mpos, 0))
+        rM = torch.where(c1, mpos, 0)
+        hidM, hposM = order_at(sM, bM, rM), entry_at(sM, bM, rM)
 
     # 3) multi-neighbour segments: rescan their <= segw entries, in blocks
     # of RESCAN_BLOCK segments
@@ -164,8 +174,8 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
         rzc = rz.clamp(min=0)
         rr = ri_all[rzc // segw]
         hsR = sM[rr]
-        hidR = order_at(hsR, bM[rr],
-                        torch.where(vrz, msg[rr] * segw + rzc % segw, 0))
+        rR = torch.where(vrz, msg[rr] * segw + rzc % segw, 0)
+        hidR, hposR = order_at(hsR, bM[rr], rR), entry_at(hsR, bM[rr], rR)
         hqR = qsp_f[mslot[rr]]
 
     # assemble + final compaction
@@ -174,7 +184,8 @@ def decode_neighbours(q_sig: torch.Tensor, qsp: torch.Tensor,
     hz = compact_indices(val_all, hitcap, trim).clamp(min=0)
     hits = torch.stack([torch.cat([hq1, hqM, hqR]),
                         torch.cat([s1, sM, hsR]),
-                        torch.cat([hid1, hidM, hidR])])[:, hz]
+                        torch.cat([hid1, hidM, hidR]),
+                        torch.cat([hpos1, hposM, hposR])])[:, hz]
     header = torch.stack([nh, n1, nm, nc, n2c, nrh])
     return header, hits
 
@@ -190,13 +201,16 @@ def default_caps(nz_cap: int = NZ_CAP) -> tuple:
 
 def cut_caps(caps: tuple, n: int, S: int, nseg: int, segw: int) -> tuple:
     """``caps`` cut to the most a page of ``n`` guides can fill (``n`` x S
-    live slots, ``nseg`` segments a slot, ``segw`` entries a segment), so a
-    short re-score call allocates no more than it can fill."""
+    live slots, ``nseg`` segments a slot, ``segw`` entries a segment; the
+    hit table the rows of its three sources), so a short re-score call
+    allocates no more than it can fill."""
     slots = max(1, n * S)
     cap1, capm = min(caps[0], slots), min(caps[1], slots)
     capm2 = min(caps[2], capm * nseg)
     capr = min(caps[3], capm2)
-    return (cap1, capm, capm2, capr, min(caps[4], capr * segw), caps[5])
+    capr2 = min(caps[4], capr * segw)
+    return (cap1, capm, capm2, capr, capr2,
+            min(caps[5], cap1 + capm2 + capr2))
 
 
 def page_bytes(qb: int, caps: tuple, S: int, B: int, nseg: int,
@@ -205,14 +219,17 @@ def page_bytes(qb: int, caps: tuple, S: int, B: int, nseg: int,
     ``caps``: the finder's planes (int32 counts + int64 rank sums); per
     slot the decode's totals, flags and compaction (~50 B); per segment
     cell of a capped multi-neighbour slot its count, rank sum, index, flag
-    and compaction (~49 B); the rescan block; and the hit table."""
+    and compaction (~49 B); the rescan block; the hit table; and the
+    replay's scratch for it and for the page's queries (at most B x qb:
+    one slot of slice 0 each)."""
     _cap1, capm, _capm2, capr, _capr2, hitcap = caps
     planes = S * B * nseg * qb * 12
     slots = S * B * qb * 50
     cells = capm * nseg * 49
     rescan = capr * segw + min(RESCAN_BLOCK, capr) * segw * 8 * 6
-    hits = 4 * hitcap * 8 * 3
-    return planes + slots + cells + rescan + hits
+    hits = 4 * hitcap * 8 * 4
+    replay = scratch_bytes(hitcap, B * qb)
+    return planes + slots + cells + rescan + hits + replay
 
 
 def segments(index: IsslIndex, chunk: int) -> tuple[int, int, int]:
@@ -225,10 +242,12 @@ def segments(index: IsslIndex, chunk: int) -> tuple[int, int, int]:
 
 def resident_bytes(index: IsslIndex, chunk: int, shared: bool) -> int:
     """Device bytes of the engine's resident index: each slice's site
-    order and CSR offsets, and the packed lists and their bucket arrays
-    unless they are another engine's (``shared``)."""
+    order and CSR offsets, and the packed lists (signatures and counts)
+    and their bucket arrays unless they are another engine's
+    (``shared``)."""
     S, B = index.slice_count, index.bucket_count
-    own = 0 if shared else S * (aligned_layout(index, chunk)[1] * 8 + B * 12)
+    own = 0 if shared else S * (aligned_layout(index, chunk)[1] * 12
+                                + B * 12)
     return index.order.size * 4 + S * (B + 1) * 8 + own
 
 
@@ -245,7 +264,7 @@ def added_bytes(index: IsslIndex, chunk: int = 4096,
 
 
 class MxuIsslScorer:
-    """Bit-exact ISSL scorer: device neighbour finder + host f64 replay.
+    """Bit-exact ISSL scorer: device neighbour finder, decode and replay.
 
     ``score`` reproduces the reference binary's output exactly (f64, scan
     order, early exit) for every method."""
@@ -276,7 +295,6 @@ class MxuIsslScorer:
         self.maxblen, self.nseg, self.segw = segments(index, self.chunk)
         # per-page populations (header) of every decoded (sub)page
         self.page_stats: list[tuple[int, ...]] = []
-        self._precalc = None
         with trace.span("mxu.build"):
             self._build(index, lists)
 
@@ -318,9 +336,11 @@ class MxuIsslScorer:
         if lists is None:
             lists = aligned_lists(index, dev, tail=self.chunk)
         self.entries = lists.entries
+        self.occ = lists.occ
         self.bucket_offsets = lists.boff
         self.bucket_lens = lists.blen
         self.order = torch.as_tensor(index.order, device=dev)
+        self._tables = replay_tables(index.seq_length, self.max_dist, dev)
         self.uoff = torch.as_tensor(
             index.bucket_offsets.astype(np.int64), device=dev)
 
@@ -417,16 +437,23 @@ class MxuIsslScorer:
         free = free_bytes(self.device)
         return free - free // 8
 
-    def _run_pages(self, sigs: np.ndarray) -> list[tuple]:
-        """Finder + device decode over all pages of ``sigs``. Returns
-        per-(sub)page tuples ``(pos, page, counts, hq, hs, hid)``: ``page``
-        is ``sigs`` at positions ``pos`` and hq/hs/hid its hit table
-        (page-local query index, slice, site id). Pages, and the halves a
-        page splits into, take every P-th guide (P = ceil(n / query_page),
-        then 2), so that on a sorted batch each samples every bucket and
-        its slot count shrinks with it. Planes larger than the device's
-        room split a page; a compaction overflow grows the caps it passed
-        and runs the page again where it still fits, else splits it."""
+    def _run_pages(self, sigs: np.ndarray, consume=None) -> list:
+        """Finder + device decode over all pages of ``sigs``, each
+        (sub)page handed to ``consume(pos, page, q_sig, hits)`` as soon as
+        it is decoded: ``page`` is ``sigs`` at positions ``pos``, ``q_sig``
+        its signatures on the device and ``hits`` (4, H) its hit table
+        there (page-local query index, slice, site id, entry position).
+        Returns what ``consume`` returned, page by page (by default those
+        four). A page's device memory is free once ``consume`` returns, so
+        the next page finds the allocator's blocks as this one did.
+
+        Pages, and the halves a page splits into, take every P-th guide (P
+        = ceil(n / query_page), then 2), so that on a sorted batch each
+        samples every bucket and its slot count shrinks with it. Planes
+        larger than the device's room split a page; a compaction overflow
+        grows the caps it passed and runs the page again where it still
+        fits, else splits it."""
+        consume = consume or (lambda *page: page)
         out = []
 
         def halves(pos, page):
@@ -457,9 +484,7 @@ class MxuIsslScorer:
                                        "query; raise the engine caps")
                 halves(pos, page)
                 return
-            hq, hs, hid = hits[:, :nh].cpu().numpy()
-            counts = np.bincount(hq, minlength=n).astype(np.float64)
-            out.append((pos, page, counts, hq, hs, hid))
+            out.append(consume(pos, page, q_sig, hits[:, :nh]))
 
         n = sigs.shape[0]
         P = -(-n // self.query_page)
@@ -475,11 +500,14 @@ class MxuIsslScorer:
         if not sigs.size:
             return np.zeros(0, dtype=np.float64)
         counts = np.zeros(sigs.shape[0], dtype=np.float64)
-        for pos, _page, c, *_hits in self._run_pages(sigs):
-            counts[pos] = c
+
+        def count(pos, _page, _q_sig, hits):
+            counts[pos] = torch.bincount(hits[0], minlength=pos.size).cpu()
+
+        self._run_pages(sigs, count)
         return counts
 
-    # -- hit decoding (host) -----------------------------------------------
+    # -- own sites (host) --------------------------------------------------
 
     def _lex(self, sigs: np.ndarray) -> np.ndarray:
         from .. import native
@@ -501,154 +529,43 @@ class MxuIsslScorer:
         occ = np.where(found, self.index.occurrences[pos].astype(np.int64), 0)
         return found, pos.astype(np.int64), occ
 
-    # -- exact replay (host, f64, vectorized) ------------------------------
-
-    def _replay_page(self, page, hq, hs, hid, method, threshold,
-                     mit_out, cfd_out, qmap):
-        """Accumulate each query's hits in exact reference order
-        (isslScoreOfftargets.cpp:308-511): hits sorted by (slice, site id)
-        — within-bucket list order IS ascending id — deduped by first
-        occurrence, f64 sums with the score-visible early exit. The per-hit
-        arithmetic is vectorized; only the running-sum loop is sequential
-        (native/replay.cpp, or the Python loop below without a
-        toolchain). ``qmap`` maps page-local query index -> output row."""
-        from .. import native
-        from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
-                             cfd_pos_penalties, precalculated_mit_scores)
-
-        idx = self.index
-        calc_mit = method in ("mit", "and", "or", "avg")
-        calc_cfd = method in ("cfd", "and", "or", "avg")
-        maximum_sum = (10000.0 - threshold * 100.0) / threshold
-
-        o = np.lexsort((hid, hs, hq))
-        hq, hs, hid = hq[o], hs[o], hid[o]
-        n_hits = hq.shape[0]
-        if n_hits == 0:
-            return
-        # dedup: first occurrence of (query, site) in scan order
-        composite = hq.astype(np.uint64) * np.uint64(idx.num_sites + 1) \
-            + hid.astype(np.uint64)
-        _, first = np.unique(composite, return_index=True)
-        keep = np.zeros(n_hits, dtype=bool)
-        keep[first] = True
-
-        qsig = page[hq]
-        sig = idx.site_sigs[hid]
-        occ = idx.occurrences[hid].astype(np.float64)
-        x = qsig ^ sig
-        even = np.uint64(0xAAAAAAAAAAAAAAAA)
-        odd = np.uint64(0x5555555555555555)
-        mask40 = ((x & even) >> np.uint64(1)) | (x & odd)
-        dist = popcount64(mask40)
-
-        if calc_mit:
-            # precalc-map lookup via unique masks (<= 6195 distinct values
-            # at max_dist 4; avoids the 2^20-entry dense table)
-            if self._precalc is None:
-                self._precalc = precalculated_mit_scores(idx.seq_length,
-                                                         self.max_dist)
-            um, inv = np.unique(mask40, return_inverse=True)
-            uvals = np.array([self._precalc.get(int(m), 0.0) for m in um],
-                             dtype=np.float64)
-            mit_c = np.where(dist > 0, uvals[inv], 0.0) * occ
-        else:
-            mit_c = np.zeros(n_hits, dtype=np.float64)
-        if calc_cfd:
-            pos_pen = cfd_pos_penalties()
-            pam = float(cfd_pam_penalties()[CFD_PAM_NGG_INDEX])
-            # sequential in position order (vectorized across hits) so the
-            # f64 product is bit-identical to the reference's loop
-            c = np.full(n_hits, pam, dtype=np.float64)
-            for p in range(idx.seq_length):
-                sh = np.uint64(2 * p)
-                qb_ = ((qsig >> sh) & np.uint64(3)).astype(np.int64)
-                ob = ((sig >> sh) & np.uint64(3)).astype(np.int64)
-                pen = pos_pen[p, (qb_ << 2) | (ob ^ 3)]
-                c = c * np.where(qb_ != ob, pen, 1.0)
-            cfd_c = np.where(dist == 0, 1.0, c) * occ
-        else:
-            cfd_c = np.zeros(n_hits, dtype=np.float64)
-
-        bounds = np.flatnonzero(np.diff(hq)) + 1
-        starts = np.concatenate([[0], bounds, [n_hits]])
-        heads = hq[starts[:-1]]
-        acc = native.replay_accumulate_native(
-            starts, mit_c, cfd_c, keep, method, maximum_sum)
-        if acc is not None:
-            m_arr, cc_arr = acc
-            rows = qmap[heads]
-            mit_out[rows] = 10000.0 / (100.0 + m_arr)
-            cfd_out[rows] = 10000.0 / (100.0 + cc_arr)
-            return
-        mit_l = mit_c.tolist()
-        cfd_l = cfd_c.tolist()
-        keep_l = keep.tolist()
-        for g in range(heads.shape[0]):
-            m = 0.0
-            cc = 0.0
-            for i in range(int(starts[g]), int(starts[g + 1])):
-                if not keep_l[i]:
-                    continue
-                m += mit_l[i]
-                cc += cfd_l[i]
-                if method == "and":
-                    if m > maximum_sum and cc > maximum_sum:
-                        break
-                elif method == "or":
-                    if m > maximum_sum or cc > maximum_sum:
-                        break
-                elif method == "avg":
-                    if (m + cc) / 2.0 > maximum_sum:
-                        break
-                elif method == "mit":
-                    if m > maximum_sum:
-                        break
-                elif cc > maximum_sum:             # cfd
-                    break
-            row = qmap[int(heads[g])]
-            mit_out[row] = 10000.0 / (100.0 + m)
-            cfd_out[row] = 10000.0 / (100.0 + cc)
-
     # -- public API ----------------------------------------------------------
 
     def score(self, query_sigs: np.ndarray, method: str | None = None,
               threshold: float | None = None):
-        """Reference-exact (mit, cfd) scores, already 10000/(100+sum)."""
+        """Reference-exact (mit, cfd) scores, already 10000/(100+sum).
+
+        Each page's hit table stays on the device: the replay
+        (:func:`~.mxu_replay.mxu_replay`) takes it with each query's own
+        site, found on the host, and returns the (n, 2) sums. A query with
+        no neighbour scores from its own site alone: distance 0 gives MIT 0
+        and CFD its occurrences (isslScoreOfftargets.cpp:393,407-408)."""
         method = self.method if method is None else method
         threshold = self.threshold if threshold is None else float(threshold)
         sigs = np.asarray(query_sigs, dtype=np.uint64)
         n = sigs.shape[0]
-        calc_cfd = method in ("cfd", "and", "or", "avg")
 
         mit = np.full(n, 100.0, dtype=np.float64)
         cfd = np.full(n, 100.0, dtype=np.float64)
         if n == 0:
             return mit, cfd
+        kw = dict(method=method, maximum_sum=maximum_sum(threshold),
+                  slice_width=self.index.slice_width)
+        entries, occ = self.entries.reshape(-1), self.occ.reshape(-1)
 
-        for (rows, page, counts, hq, hs, hid) in self._run_pages(sigs):
-            flagged = counts > 0
-            found, sid_self, occ_self = self._self_lookup(page)
+        def replay(rows, page, q_sig, hits):
+            found, sid, occ_self = self._self_lookup(page)
+            own = torch.as_tensor(np.stack([np.where(found, sid, -1),
+                                            occ_self]), device=self.device)
+            trace.count("mxu.replay_hits", hits.shape[1])
+            with trace.span("mxu.replay"):
+                rep = mxu_replay(hits, q_sig, own, entries, occ,
+                                 self._tables, **kw)
+                sums = rep.sums.cpu().numpy()
+            if trace.active():
+                trace.count("mxu.replay_spilled", int(rep.spilled))
+            mit[rows] = 10000.0 / (100.0 + sums[:, 0])
+            cfd[rows] = 10000.0 / (100.0 + sums[:, 1])
 
-            # neighbour-free queries: the only possible hit is the query's
-            # own site — dist 0 gives MIT 0 and CFD occurrences
-            # (isslScoreOfftargets.cpp:393,407-408); no exit can truncate a
-            # single-hit scan, so this is the exact reference result
-            if calc_cfd:
-                clean = ~flagged
-                cfd[rows[clean]] = 10000.0 / (100.0 + occ_self[clean]
-                                              .astype(np.float64))
-
-            if flagged.any():
-                # self-hits of flagged queries: present in every slice's
-                # bucket; ordering needs only (slice, id), both known
-                fs = np.flatnonzero(flagged & found)
-                if fs.size:
-                    hq = np.concatenate([hq, np.repeat(fs, self.S)])
-                    hs = np.concatenate(
-                        [hs, np.tile(np.arange(self.S), fs.size)])
-                    hid = np.concatenate(
-                        [hid, np.repeat(sid_self[fs], self.S)])
-                self._replay_page(page, hq, hs, hid, method, threshold,
-                                  mit, cfd, qmap=rows)
+        self._run_pages(sigs, replay)
         return mit, cfd

@@ -30,7 +30,10 @@ stages, ``index.`` and ``kernel.`` for set-up (and ``mxu.build`` for the
 exact re-scorer's). Counters do too: ``compact.`` for the page program
 (``compact.plane_bytes``: each enqueued page's device bytes), ``hybrid.``
 for the re-score (``hybrid.exact_fallback``: each call that went to a host
-re-scorer).
+re-scorer), ``mxu.`` for the exact engine (``mxu.replay_hits``: the hit
+rows each page hands to its replay, under the span ``mxu.replay``;
+``mxu.replay_spilled``: the guides whose rows the replay kernel sorted in
+global memory, past a block's shared memory).
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ check.compare``) at the mouse configuration's limits, and its verdicts to
 the port's emulation of the binary (``ops/oracle.score_exact``). The
 exact re-scorer reads the compact engine's lists and scores the deep
 bucket's guides as the oracle does, bit for bit.
+
+Marked ``cuda`` (skipped without a card): the same index with a crowd of
+every 20-mer at distance 1-2 of one deep site, whose guide has ~5,600 hit
+rows, past what a block of the replay kernel (``csrc/mxu_replay.cu``) sorts
+in shared memory; the kernel's sums against its plain version's (max error
+0) and the native exact scorer's, for all five methods.
 """
 
 import json
@@ -29,6 +35,7 @@ from crackling_tpu_torch import trace
 from crackling_tpu_torch.index import build_index
 from crackling_tpu_torch.ops.hybrid import HybridIsslScorer
 from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
+from crackling_tpu_torch.ops import mxu_replay as mr
 from crackling_tpu_torch.ops.issl_mxu import MxuIsslScorer
 from crackling_tpu_torch.ops.oracle import score_exact
 from crackling_tpu_torch.pipeline.run import verdicts
@@ -43,9 +50,23 @@ N_DEEP = 4_250_000
 # planes to a few hundred MB on the CPU; the card runs the default 4,096
 CHUNK = 1 << 16
 METHOD, THRESHOLD = "and", 75.0
+METHODS = ["and", "or", "mit", "cfd", "avg"]
 
 
-def deep_world(seed=31):
+def crowd(center):
+    """Every 20-mer at distance 1 or 2 from ``center`` (1,770 sites): a
+    guide there has ~5,600 hit rows (a site is found in each slice it
+    equals the guide in), past ``mxu_replay.SHARED_HITS``."""
+    p = np.arange(20, dtype=np.uint64) * np.uint64(2)
+    d = np.arange(1, 4, dtype=np.uint64)
+    one = (center ^ (d[None, :] << p[:, None])).ravel()
+    i, j = np.triu_indices(20, 1)
+    two = (center ^ (d[:, None, None] << p[i][None, None, :])
+           ^ (d[None, :, None] << p[j][None, None, :])).ravel()
+    return np.concatenate([one, two])
+
+
+def deep_world(seed=31, crowded=False):
     rng = np.random.default_rng(seed)
 
     def pin(sigs):
@@ -58,14 +79,17 @@ def deep_world(seed=31):
     base = (deep[:2] >> hot_pos) & np.uint64(3)
     hot = ((deep[:2] & ~(np.uint64(3) << hot_pos))
            | (((base + np.uint64(1)) & np.uint64(3)) << hot_pos))
+    # a crowd around deep[100], the last query, where asked for
+    extra = [crowd(deep[100])] if crowded else []
     index = build_index(np.concatenate([
-        deep, filler, np.repeat(hot, rng.integers(1, 61, size=2))]))
+        deep, filler, np.repeat(hot, rng.integers(1, 61, size=2)), *extra]))
     pos = rng.integers(4, 20, size=4).astype(np.uint64) * np.uint64(2)
     variants = ((deep[64:68] & ~(np.uint64(3) << pos))
                 | (rng.integers(0, 4, size=4).astype(np.uint64) << pos))
     queries = np.concatenate([
         deep[:4], variants, filler[:28],
-        rng.integers(0, 1 << 40, size=28).astype(np.uint64)])
+        rng.integers(0, 1 << 40, size=28).astype(np.uint64),
+        deep[100:101] if crowded else deep[:0]])
     return index, queries
 
 
@@ -123,3 +147,67 @@ def test_exact_rescorer_reads_the_compact_lists_past_2_22(world):
     assert np.array_equal(np.stack(exact.score(deep)),
                           np.stack(score_exact(index, deep, 4, THRESHOLD,
                                                METHOD)))
+
+
+@pytest.fixture(scope="module")
+def card_page():
+    """The crowded deep index on the card, its MXU engine and the hit
+    table of one page of its 65 queries: (index, queries, engine, page
+    positions, q_sig, hits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the replay kernel has no CPU form")
+    index, queries = deep_world(crowded=True)
+    eng = MxuIsslScorer(index, max_dist=4, method=METHOD,
+                        threshold=THRESHOLD, device="cuda")
+    (pos, page, q_sig, hits), = eng._run_pages(queries)
+    return index, queries, eng, pos, q_sig, hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_replay_kernel_equals_plain_version_on_the_card(card_page, method,
+                                                        monkeypatch):
+    from crackling_tpu_torch import native
+
+    index, queries, eng, pos, q_sig, hits = card_page
+    found, sid, occ = eng._self_lookup(queries[pos])
+    own = torch.as_tensor(np.stack([np.where(found, sid, -1), occ]))
+    args = (eng.entries.reshape(-1), eng.occ.reshape(-1),
+            mr.replay_tables(20, 4, "cuda"))
+    kw = dict(method=method, maximum_sum=mr.maximum_sum(THRESHOLD),
+              slice_width=8)
+    launches = mr.mxu_replay.launches
+    got = mr.mxu_replay(hits, q_sig, own.cuda(), *args, **kw)
+    want = mr.mxu_replay_plain(
+        hits.cpu(), q_sig.cpu(), own,
+        *(t.cpu() for t in args[:2]),
+        mr.ReplayTables(*(t.cpu() for t in args[2][:3]), args[2].pam),
+        **kw)
+    assert mr.mxu_replay.launches == launches + 1
+    assert int(got.spilled) == int(want.spilled) >= 1     # the crowd's guide
+    assert torch.equal(got.sums.cpu(), want.sums)           # max error 0
+
+    # the engine: one launch a page, no host copy of its hit table, and
+    # the native exact scorer's scores bit for bit
+    copied = []
+    real_cpu = torch.Tensor.cpu
+
+    def spy(t, *a, **k):
+        copied.append(t.numel())
+        return real_cpu(t, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", spy)
+    launches = mr.mxu_replay.launches
+    trace.enable()
+    try:
+        mit, cfd = eng.score(queries, method=method)
+        counters = trace.session().counters
+    finally:
+        trace.disable()
+    monkeypatch.undo()
+    assert mr.mxu_replay.launches == launches + 1
+    assert counters["mxu.replay_hits"] == hits.shape[1] > 4 * queries.size
+    assert counters["mxu.replay_spilled"] >= 1
+    assert max(copied) <= 2 * queries.size          # the sums, not the hits
+    ref = native.exact_score_native(index, queries, 4, THRESHOLD, method)
+    assert np.array_equal(mit, ref[0]) and np.array_equal(cfd, ref[1])

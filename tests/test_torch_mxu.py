@@ -14,14 +14,17 @@ import pytest
 import torch
 
 import crackling_tpu_torch.ops.issl_mxu as port_mxu
+from crackling_tpu_torch import trace
 from crackling_tpu.index import build_index as jax_build_index
 from crackling_tpu.ops.issl_mxu import MxuIsslScorer as JaxMxu
 from crackling_tpu.ops.oracle import score_exact
+from crackling_tpu_torch.index import build_index as port_build_index
 from crackling_tpu_torch.ops.issl_mxu import SLOT_ALIGN, MxuIsslScorer
 from crackling_tpu_torch.ops.mxu_finder import (emulate_mxu_finder,
                                                 mxu_finder)
 from test_mxu import data  # noqa: F401  (shared fixture)
 from test_torch_compact import port_index
+from test_torch_deep import crowd
 
 METHODS = ["and", "or", "mit", "cfd", "avg"]
 KW = dict(query_page=512, chunk=1024)
@@ -233,3 +236,121 @@ def test_auto_caps_grow_instead_of_splitting(data):  # noqa: F811
     mit, cfd = eng.score(queries)
     ref_mit, ref_cfd = score_exact(index, queries, 4, 75.0, "and")
     assert np.array_equal(mit, ref_mit) and np.array_equal(cfd, ref_cfd)
+
+
+# -- the exact replay (ops/mxu_replay.py; its plain version on the CPU) ----
+
+
+@pytest.fixture(scope="module")
+def replay_world():
+    """A small port index that holds each case of the replay, its engine
+    and its queries (index, engine, queries, cases): a guide with a crowd
+    of 1,770 neighbours at distance 1-2 (~5,600 hit rows, past the kernel's
+    shared memory; its scan exits early), a guide whose three one-base
+    neighbours (7, 30 and 1 copies) are each found in four slices, two
+    neighbour-free guides (one in the index, 3 copies; one not), a guide
+    off the index inside the crowd (~1,900 rows), and 40 random sites of
+    the index."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 1 << 40, size=3000, dtype=np.uint64)
+    center, near, lone = base[0], base[1], base[2]
+    shift = np.array([5, 9, 13], dtype=np.uint64) * np.uint64(2)
+    one_base = near ^ (np.uint64(1) << shift)
+    index = port_build_index(np.concatenate([
+        base, crowd(center), np.repeat(one_base, [7, 30, 1]),
+        np.repeat(lone, 2)]))
+    off_index = center ^ np.uint64(0b10101 << 20)     # 3 bases from it
+    fresh = rng.integers(0, 1 << 40, size=1, dtype=np.uint64)
+    queries = np.concatenate([[center, near, lone], fresh, [off_index],
+                              base[3:43]])
+    eng = MxuIsslScorer(index, max_dist=4, method="and", threshold=75.0,
+                        chunk=1024, device="cpu")
+    yield index, eng, queries
+    torch.set_num_threads(old)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_replay_scores_equal_native_exact_and_oracle(replay_world, method):
+    """``MxuIsslScorer.score`` through the plain replay, bit for bit equal
+    to ``native/exact.cpp`` and to ``oracle.score_exact``, with each case
+    of the world present."""
+    from crackling_tpu_torch import native
+    from crackling_tpu_torch.ops.oracle import score_exact as port_exact
+
+    index, eng, queries = replay_world
+    trace.enable()
+    try:
+        got = eng.score(queries, method=method)
+        counters = trace.session().counters
+    finally:
+        trace.disable()
+    for want in (native.exact_score_native(index, queries, 4, 75.0, method),
+                 port_exact(index, queries, 4, 75.0, method)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    assert counters["mxu.replay_spilled"] == 2    # the two in the crowd
+    assert counters["mxu.replay_hits"] > 5000
+    counts = eng.neighbour_counts(queries[:5])
+    found = eng._self_lookup(queries[:5])[0]
+    assert counts[1] == 3 * 4 and found[1]         # found in four slices each
+    assert counts[2] == counts[3] == 0 and list(found[2:4]) == [True, False]
+    assert counts[4] > 0 and not found[4]
+    # the crowd's guide exits early: without an exit its sums are larger
+    full = eng.score(queries[:1], method=method, threshold=1e-9)
+    assert (full[0][0], full[1][0]) != (got[0][0], got[1][0])
+
+
+def test_replay_of_pages_with_no_hit_rows(replay_world):
+    """An empty page, and a page whose guides have no neighbour: the
+    replay scores them from their own sites alone."""
+    from crackling_tpu_torch.ops.oracle import score_exact as port_exact
+
+    index, eng, queries = replay_world
+    empty = eng.score(np.empty(0, dtype=np.uint64))
+    assert empty[0].shape == empty[1].shape == (0,)
+    lone = queries[2:4]
+    assert not eng.neighbour_counts(lone).any()
+    got, want = eng.score(lone), port_exact(index, lone, 4, 75.0, "and")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert got[1][0] == 10000.0 / 103.0 and got[0][0] == 100.0
+
+
+def test_plain_replay_does_not_depend_on_row_order(replay_world):
+    """The kernel scatters each query's rows in no order; the plain version
+    sorts them too, so a shuffled hit table gives the same sums."""
+    from crackling_tpu_torch.ops import mxu_replay as mr
+
+    _index, eng, queries = replay_world
+    (pos, page, q_sig, hits), = eng._run_pages(queries)
+    found, sid, occ = eng._self_lookup(page)
+    own = torch.as_tensor(np.stack([np.where(found, sid, -1), occ]))
+    args = (q_sig, own, eng.entries.reshape(-1), eng.occ.reshape(-1),
+            mr.replay_tables(20, 4, "cpu"))
+    kw = dict(method="avg", maximum_sum=mr.maximum_sum(75.0), slice_width=8)
+    calls = mr.mxu_replay_plain.calls
+    a = mr.mxu_replay(hits, *args, **kw)
+    perm = torch.randperm(hits.shape[1],
+                          generator=torch.Generator().manual_seed(3))
+    b = mr.mxu_replay(hits[:, perm].contiguous(), *args, **kw)
+    assert mr.mxu_replay_plain.calls == calls + 2
+    assert torch.equal(a.sums, b.sums) and int(a.spilled) == 2
+
+
+def test_replay_off_the_cpu_never_runs_the_plain_version():
+    """Off the CPU the wrapper launches its kernel or raises."""
+    from crackling_tpu_torch.ops import mxu_replay as mr
+
+    def t(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    calls = mr.mxu_replay_plain.calls
+    tabs = mr.ReplayTables(t((8,), torch.int32), t((8,), torch.float64),
+                           t((20, 16), torch.float64), 1.0)
+    with pytest.raises(ValueError, match="no exact replay"):
+        mr.mxu_replay(t((4, 3), torch.int64), t((2,), torch.int64),
+                      t((2, 2), torch.int64), t((8,), torch.int64),
+                      t((8,), torch.int32), tabs, method="and",
+                      maximum_sum=1.0, slice_width=8)
+    assert mr.mxu_replay_plain.calls == calls
