@@ -22,7 +22,7 @@ Phases, each fatal on failure:
    genome, seed 20260816, cached under .cache/chip_smoke/) with the
    compact engine: time the finder, the decode, its steps 1-2 alone (the
    decode kernel, one launch) and the rescan alone (on the page's own
-   rescan list, at the tuned caps; with the 50 MB L2 flushed before each
+   rescan list, at the tuned rows cap; with the 50 MB L2 flushed before each
    launch, and warm beside it) with CUDA events, the plain decode steps,
    the plain rescan and the page with the host clock; the decode kernel's
    and the rescan's bounds with their operations and bytes terms; check a
@@ -61,13 +61,13 @@ Phases, each fatal on failure:
 3f. (run before 3) hold the compact decode kernel (steps 1-2) against its
     plain version on the same finder cells: the small index at
     max-distance 4, 0 and 2, the skewed index's page (superchunk level on)
-    and the 65,536-query page, each at the caps the auto-tuning sets from
+    and the 65,536-query page, each at the rows cap the tuning sets from
     it: populations equal, sums within rtol 1e-12 / atol 1e-9, the live
     rescan rows equal as a set, and the kernel's rows of each chunk one
-    consecutive run; then with each level's cap one below its population
-    (the superchunk levels on the skewed page) both must flag the page at
-    that level; each prints its caps, populations, live rows, runs and
-    errors;
+    consecutive run; then with the rows cap one below the page's rows
+    (the skewed page and the 65,536-query page) both must flag the page,
+    keep every population and list exactly the cap's rows; each prints
+    its cap, populations, live rows, runs and errors;
 4. hold the neighbour finder kernel (the MXU engine's, an int8
    tensor-core distance screen: K = 64 at slice width 8, 96 at the
    others) against its plain version, cell for cell (exact), on the small
@@ -262,7 +262,7 @@ RESCAN_DESCRIPTOR_BYTES = 6 * 8
 # and its max rank at 2 hits, the count of every cell the tree walk
 # visits, the 8-B entry and 4-B occurrence of every distinct hit entry and
 # the 4-B MIT table entry of every distinct hit mask, the 8-B signature and
-# two f64 sums of every query it scores, the whole (6, caps[5]) row block
+# two f64 sums of every query it scores, the whole (6, cap_rescan) row block
 # written, and the 4-B bucket length of every >=3-hit slot (its cells are
 # counted only up to that length: a cell past it holds no hit); a
 # kernel's own scratch is not counted; operations: ~8 32-bit operations
@@ -560,7 +560,7 @@ def phase_build():
 def finder_inputs(scorer, queries, qb=None):
     """The finder's inputs for one page of ``queries`` on the scorer's
     device (the slot plan the scorer itself would make)."""
-    from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+    from crackling_tpu_torch.ops.issl_compact import plan_query_occupancy
     from crackling_tpu_torch.ops.issl_compact import plan_slots
 
     if qb is None:
@@ -591,7 +591,7 @@ def compare_finder(scorer, q, qsp, blen=None, max_dist=None):
 def ragged_qb(scorer, queries):
     """A slot count that holds every bucket's queries and is not a multiple
     of 8 (the plan's own qb is a multiple of 64)."""
-    from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+    from crackling_tpu_torch.ops.issl_compact import plan_query_occupancy
 
     _, needed = plan_query_occupancy(queries, scorer.S, scorer.B, 8,
                                      scorer.qb_cap)
@@ -829,12 +829,12 @@ def phase_rescan_kernel_vs_plain(dev, bench_scorer, bench_queries):
     return max(errs)
 
 
-def decode_args(scorer, q, qsp, fo, caps):
-    """The decode's arguments for the scorer's lists at ``caps``."""
+def decode_args(scorer, q, qsp, fo, cap):
+    """The decode's arguments for the scorer's lists at rows cap ``cap``."""
     return ((q, qsp, fo, scorer.bucket_offsets, scorer.bucket_lens,
              scorer.entries, scorer.occ),
             dict(chunk=scorer.chunk, superchunk=scorer.superchunk,
-                 caps=tuple(caps), tabs=scorer.tables, trim=False))
+                 cap_rescan=int(cap), tabs=scorer.tables, trim=False))
 
 
 def live_rows(d):
@@ -844,36 +844,35 @@ def live_rows(d):
         d.rows.hq, d.rows.start, d.rows.live, d.rows.s, d.rows.q))))
 
 
-def compare_decode(scorer, q, qsp, fo, caps):
+def compare_decode(scorer, q, qsp, fo, cap):
     """Kernel vs plain version of the decode's steps 1-2 on the same cells
-    at ``caps``. Within the caps the populations must be equal, the sums
-    within rtol 1e-12 / atol 1e-9 (the same f32 terms summed in f64 in
-    another order) and the live rows equal as a set; over a cap both must
-    flag it, with equal populations up to the first over its cap. The
-    kernel's rows of each chunk must be consecutive. Returns (populations,
-    max abs err, max rel err, live rows, the first level over its cap or
-    None, runs of rows sharing a chunk)."""
+    at rows cap ``cap``. The populations must be equal. Within the cap the
+    sums must lie within rtol 1e-12 / atol 1e-9 (the same f32 terms summed
+    in f64 in another order) and the live rows be equal as a set; over it
+    both must flag the page and list exactly ``cap`` rows. The kernel's
+    rows of each chunk must be consecutive. Returns (populations, max abs
+    err, max rel err, live rows, whether the rows passed the cap, runs of
+    rows sharing a chunk)."""
     import torch
 
     from crackling_tpu_torch.ops.compact_decode import (compact_decode,
                                                         compact_decode_plain)
 
-    args, kw = decode_args(scorer, q, qsp, fo, caps)
+    args, kw = decode_args(scorer, q, qsp, fo, cap)
     got = compact_decode(*args, **kw)
     want = compact_decode_plain(*args, **kw)
     sync(q.device)
     runs = grouped_runs(got, q.numel(), "the decode comparison")
     gp, wp = got.pops.tolist(), want.pops.tolist()
-    over = [p > c for p, c in zip(wp, caps)]
-    if any(over):
-        lvl = over.index(True)
-        if gp[lvl] <= caps[lvl] or gp[:lvl + 1] != wp[:lvl + 1]:
-            fail(f"the decode kernel's populations {gp} do not flag cap "
-                 f"{lvl} ({caps[lvl]}) as the plain version's {wp} do")
-        return wp, 0.0, 0.0, len(live_rows(got)), lvl, runs
     if gp != wp:
         fail(f"decode kernel populations {gp} differ from the plain "
              f"version's {wp}")
+    if wp[5] > cap:
+        listed = (len(live_rows(got)), len(live_rows(want)))
+        if listed != (cap, cap):
+            fail(f"over its rows cap {cap} the decode listed {listed[0]} "
+                 f"rows (kernel) and {listed[1]} (plain version)")
+        return wp, 0.0, 0.0, cap, True, runs
     errs = []
     for name, g, w in (("mit", got.mit_sums, want.mit_sums),
                        ("cfd", got.cfd_sums, want.cfd_sums)):
@@ -888,7 +887,7 @@ def compare_decode(scorer, q, qsp, fo, caps):
         fail("the decode kernel's rescan rows differ from the plain "
              "version's as a set")
     return (wp, max(e[0] for e in errs), max(e[1] for e in errs),
-            len(rows), None, runs)
+            len(rows), False, runs)
 
 
 def grouped_runs(d, n, what):
@@ -902,51 +901,46 @@ def grouped_runs(d, n, what):
     return runs
 
 
-def tuned_caps(scorer, q, qsp, fo):
-    """The caps the scorer's auto-tuning would set from this page: ~1.25x
-    each population of a decode at the generous first-page caps."""
+def tuned_cap(scorer, q, qsp, fo):
+    """The rows cap the scorer's tuning would set from this page: ~1.25x
+    the rows of a decode at the initial cap."""
     from crackling_tpu_torch.ops.compact_decode import compact_decode_plain
-    from crackling_tpu_torch.ops.issl_compact import (_quant_cap,
-                                                      normalize_caps)
+    from crackling_tpu_torch.ops.issl_compact import CAP_RESCAN, _quant_cap
 
-    args, kw = decode_args(scorer, q, qsp, fo, normalize_caps(None, 1 << 17))
-    pops = compact_decode_plain(*args, **kw).pops.tolist()
-    return tuple(_quant_cap(p) for p in pops + [0])
+    args, kw = decode_args(scorer, q, qsp, fo, CAP_RESCAN)
+    return _quant_cap(int(compact_decode_plain(*args, **kw).pops[5]))
 
 
 def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
     """Phase 3f: the decode kernel (steps 1-2) against its plain version on
     the same finder cells: the small index at max-distance 4, 0 and 2, the
     skewed index's page (superchunk level on) and the 65,536-query page,
-    each at the caps the auto-tuning sets from it; then each level's cap
-    one below its population, the superchunk levels on the skewed page,
-    the others on the 65,536-query page: both must flag it. Every kernel
-    list must come grouped by chunk; each line prints its runs. Returns the
-    largest absolute error."""
+    each at the rows cap the tuning sets from it; then the rows cap one
+    below the page's rows on the skewed and the 65,536-query page: both
+    must flag it. Every kernel list must come grouped by chunk; each line
+    prints its runs. Returns the largest absolute error."""
     from crackling_tpu_torch.ops.issl_compact import CompactIsslScorer
 
     errs = []
 
-    def check(what, sc, queries, level=None):
+    def check(what, sc, queries, over=False):
         q, qsp = finder_inputs(sc, queries)
         fo = sc.finder(q, qsp)
-        caps = tuned_caps(sc, q, qsp, fo)
-        pops, *_ = compare_decode(sc, q, qsp, fo, caps)
-        if level is not None:
-            if not pops[level]:
-                fail(f"{what} has no population {level} to overflow")
-            caps = list(caps)
-            caps[level] = pops[level] - 1
+        cap = tuned_cap(sc, q, qsp, fo)
+        pops, *_ = compare_decode(sc, q, qsp, fo, cap)
+        if over:
+            if not pops[5]:
+                fail(f"{what} has no rescan rows to overflow")
+            cap = pops[5] - 1
         pops, abs_err, rel_err, rows, flagged, runs = compare_decode(
-            sc, q, qsp, fo, caps)
-        if level is not None and flagged != level:
-            fail(f"{what}: cap {level} below its population was not the "
-                 f"first flagged ({flagged})")
+            sc, q, qsp, fo, cap)
+        if flagged != over:
+            fail(f"{what}: the rows cap {cap} flagged {flagged}")
         errs.append(abs_err)
         emit({"phase": "decode_kernel_vs_plain", "input": what,
               "max_dist": sc.max_dist, "superchunk": sc.superchunk,
-              "caps": list(caps), "populations": pops, "live_rows": rows,
-              "runs": runs, "flagged_level": flagged, "max_abs_err": abs_err,
+              "cap_rescan": cap, "populations": pops, "live_rows": rows,
+              "runs": runs, "flagged": flagged, "max_abs_err": abs_err,
               "max_rel_err": rel_err})
         return pops
 
@@ -963,17 +957,13 @@ def phase_decode_kernel_vs_plain(dev, bench_scorer, bench_queries):
     check("skewed", sk, queries)
     pops = check("bench page", bench_scorer, bench_queries)
     if not all(pops[k] for k in (0, 1, 4, 5)):
-        fail(f"the bench page lacks a population to overflow: {pops}")
-    for level in range(6):
-        if level in (2, 3):
-            check("skewed, over a cap", sk, queries, level)
-        else:
-            check("bench page, over a cap", bench_scorer, bench_queries,
-                  level)
+        fail(f"the bench page lacks a population: {pops}")
+    check("skewed, over the rows cap", sk, queries, True)
+    check("bench page, over the rows cap", bench_scorer, bench_queries, True)
     return max(errs)
 
 
-def decode_bound_ms(scorer, q, qsp, fo, caps):
+def decode_bound_ms(scorer, q, qsp, fo, cap):
     """Least time for the decode's steps 1-2 on this page: the larger of
     its bytes (DECODE_SLOT_OPS' comment) over HBM bandwidth and its 32-bit
     operations over the ALU peak. Returns (ms, bound by, scored cells,
@@ -1029,7 +1019,7 @@ def decode_bound_ms(scorer, q, qsp, fo, caps):
               + int(visited.sum()) * 4
               + int(torch.unique(pos).numel()) * 12
               + int(torch.unique(masks).numel()) * 4
-              + queries * (8 + 16) + caps[5] * RESCAN_DESCRIPTOR_BYTES
+              + queries * (8 + 16) + cap * RESCAN_DESCRIPTOR_BYTES
               + nm * 4)
     hits = int(pos.numel())
     terms = {"operations": (S * B * qb * DECODE_SLOT_OPS
@@ -1098,7 +1088,7 @@ def phase_scorer(dev, scorer, queries, card):
     from crackling_tpu_torch.pipeline.run import verdicts
 
     t = time.perf_counter()
-    scorer.score_sums(queries)                 # first page: tunes the caps
+    scorer.score_sums(queries)                 # first page: tunes the cap
     tune_s = time.perf_counter() - t
     mit_sum, cfd_sum = scorer.score_sums(queries)          # warm
     walls = []
@@ -1123,7 +1113,7 @@ def phase_scorer(dev, scorer, queries, card):
     plain_ms = (time.perf_counter() - t) * 1e3
     bound_ms, bound_by, pairs, terms = finder_bound_ms(scorer, q, qsp, C)
 
-    # steps 1-2 alone (the decode kernel) at the tuned caps, its plain
+    # steps 1-2 alone (the decode kernel) at the tuned cap, its plain
     # version on the card and its bound
     from crackling_tpu_torch.ops.compact_decode import compact_decode_plain
 
@@ -1131,16 +1121,16 @@ def phase_scorer(dev, scorer, queries, card):
                               dev)
     decode_kernel_ms = queued_ms(lambda: scorer.decode_tree(q, qsp, fo), 10,
                                  dev)
-    args, kw = decode_args(scorer, q, qsp, fo, scorer._caps())
+    args, kw = decode_args(scorer, q, qsp, fo, scorer._cap())
     sync(dev)
     t = time.perf_counter()
     compact_decode_plain(*args, **kw)
     sync(dev)
     decode_plain_ms = (time.perf_counter() - t) * 1e3
     (decode_bound, decode_by, decode_cells, decode_hits,
-     decode_terms) = decode_bound_ms(scorer, q, qsp, fo, scorer._caps())
+     decode_terms) = decode_bound_ms(scorer, q, qsp, fo, scorer._cap())
 
-    # the rescan alone, on the page's own list at the tuned caps
+    # the rescan alone, on the page's own list at the tuned cap
     rows = scorer.decode_tree(q, qsp, fo).rows
     n = q.numel()
     sums = zero_sums(n, dev)
@@ -1198,7 +1188,7 @@ def phase_scorer(dev, scorer, queries, card):
           "qb": int(qsp.shape[2]), "nchmax": scorer._nchmax,
           "superchunk": scorer.superchunk, "pairs": pairs,
           "page_stats": list(scorer.page_stats[-1]),
-          "caps": list(scorer._caps()), "tune_page_s": tune_s,
+          "cap_rescan": scorer._cap(), "tune_page_s": tune_s,
           "page_wall_s": walls, "plan_ms": plan_ms, "finder_ms": finder_ms,
           "decode_ms": decode_ms, "decode_kernel_ms": decode_kernel_ms,
           "decode_call_ms": decode_call_ms,
@@ -1442,7 +1432,7 @@ def phase_onehot_page(dev, sc, queries, size, card):
     from crackling_tpu_torch.ops.compact_onehot import (
         blocks_per_sm, compact_finder_onehot, compact_finder_onehot_plain,
         onehot_planes)
-    from crackling_tpu_torch.ops.issl_compact import normalize_caps
+    from crackling_tpu_torch.ops.issl_compact import CAP_RESCAN
 
     page = queries[:size]
     q, qsp = finder_inputs(sc, page)
@@ -1466,14 +1456,14 @@ def phase_onehot_page(dev, sc, queries, size, card):
     build_ms = float(np.median(host_walls(
         lambda: onehot_planes(sc.entries, sc.index.seq_length), dev))) * 1e3
 
-    # the page program with each finder, each from freshly tuned caps
+    # the page program with each finder, each from a freshly tuned cap
     walls, sums = {}, {}
     for onehot in (False, True, True, False):
         which = "onehot" if onehot else "packed"
         sc.onehot = onehot
-        sc._set_caps(normalize_caps(None, 1 << 17))
+        sc.cap_rescan = CAP_RESCAN
         sc._tuned = False
-        sums[which] = sc.score_sums(page)                  # tunes the caps
+        sums[which] = sc.score_sums(page)                  # tunes the cap
         walls.setdefault(which, []).extend(
             host_walls(lambda: sc.score_sums(page), dev, reps=2))
     sc.onehot = True
@@ -1740,7 +1730,7 @@ def phase_sharded_page(dev, index, queries, card):
     """The 65,536-query page with ``ShardedCompactIsslScorer`` at 1, 2 and
     4 site-range shards, all listed on the one card (the port's form of the
     JAX package's virtual-device layout). After a first call that tunes
-    each shard's caps, the counts are set to 0 and one call must launch
+    each shard's cap, the counts are set to 0 and one call must launch
     the compact finder shards x pages times and run no plain version; its
     sums must lie within rtol 1e-9 of the one-shard page's (the same f32
     terms summed in f64 in another order). The page wall (host clock) and
@@ -1761,7 +1751,7 @@ def phase_sharded_page(dev, index, queries, card):
         sc = ShardedCompactIsslScorer(index, make_mesh(k, 1, [dev] * k),
                                       max_dist=4)
         build_s = time.perf_counter() - t
-        sc.score_sums(queries)                  # tunes each shard's caps
+        sc.score_sums(queries)                  # tunes each shard's cap
         reset_counters(kernels)
         sync(dev)
         t = time.perf_counter()
@@ -2021,7 +2011,7 @@ def fullscan_engines(index, dev, **dense_kw):
 def dense_inputs(eng, queries, qb=None):
     """The dense scan's inputs for one page of ``queries`` (the slot plan
     the engine itself makes, or one of ``qb`` slots)."""
-    from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+    from crackling_tpu_torch.ops.issl_compact import plan_query_occupancy
 
     if qb is None:
         qb, _ = plan_query_occupancy(queries, eng.S, eng.B, 8, eng.qb_cap)

@@ -8,7 +8,7 @@ archive`` into a directory that ``.gitignore`` lists). Both packages have
 one name, so each run is a process of its own that imports one tree's
 ``crackling_tpu_torch`` and this tree's ``chip_smoke.py`` helpers. On
 ``chip_smoke.py``'s 65,536-query page of the 27 Mbp operating point (its
-cached dataset, built when absent) a run tunes the scorer's caps on the
+cached dataset, built when absent) a run tunes the scorer's rows cap on the
 page, then times with CUDA events: steps 1-2 (``decode_tree``: the decode
 kernel and the wrapper's fills, queued back to back), the rescan on the
 list the tree's own decode gives (the L2 flushed before each launch, and
@@ -54,7 +54,7 @@ def time_tree(tree: Path) -> None:
     dev = "cuda"
     index, queries, _ = cs.bench_dataset()
     scorer = CompactIsslScorer(index, max_dist=4, device=dev)
-    scorer.score_sums(queries)                 # the first page tunes caps
+    scorer.score_sums(queries)                 # the first page tunes the cap
     q, qsp = cs.finder_inputs(scorer, queries)
     fo = scorer.finder(q, qsp)
     rows = scorer.decode_tree(q, qsp, fo).rows
@@ -67,7 +67,7 @@ def time_tree(tree: Path) -> None:
 
     live = int(((rows.ridx >= 0) & (rows.hq < n)).sum())
     cs.emit({"tree": str(tree), "card": cs.card_line(),
-             "caps": list(scorer._caps()), "rescan_rows": rows.ridx.numel(),
+             "cap_rescan": scorer.cap_rescan, "rescan_rows": rows.ridx.numel(),
              "rescan_live_rows": live,
              "rescan_runs": cs.chunk_runs(rows, n)[0],
              "decode_ms": cs.queued_ms(

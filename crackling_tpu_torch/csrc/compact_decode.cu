@@ -50,8 +50,8 @@
 // cells in stages, so its chains of dependent loads (plan, ranks, entries,
 // table) overlap. The block's populations are tallied in shared memory and
 // added once, each counter on a 128-B line of its own: 1,280 blocks' atomics
-// on one line queue one after another. Counters count past their caps;
-// only the writes stop there.
+// on one line queue one after another. n_rescan counts past cap_rescan,
+// the one cap; only the rows' writes stop there.
 //
 // Contract: allocates nothing, adds into the sums and the counters the
 // caller zeroed, and the C entry point returns cudaGetLastError().

@@ -18,14 +18,12 @@ row of :class:`~.compact_rescan.RescanRows` for step 3.
 
 The result, :class:`Decoded`, holds the six populations (n_single,
 n_mslot, n_scell, n_sresc, n_mcell, n_rescan), the sums and the rows,
-at most ``caps[5]`` of them. On a page where no population exceeds its
-cap both implementations give the same populations and rows (the rows in
+at most ``cap_rescan`` of them: the rows are the one output a cap bounds.
+Both implementations give the same populations and rows (the rows in
 another order) and sums that differ only in the order of their f64
-additions. On a page over a cap both flag it: the populations up to and
-including the first one over its cap are the same, and later ones may
-differ, because the plain version compacts each level at its cap while
-the kernel counts every cell and stops only its writes at the caps. The
-host drops such a page's sums and runs it again.
+additions. On a page whose n_rescan passes ``cap_rescan`` both list the
+first ``cap_rescan`` rows they find and count the rest; the host drops
+such a page's sums and runs it again.
 
 Two implementations of the same function:
 
@@ -36,7 +34,7 @@ Two implementations of the same function:
   tensor it runs the plain version. Nothing else: no fallback from one
   to the other.
 * :func:`compact_decode_plain` — plain PyTorch, each level's cells
-  compacted at its cap (:func:`compact_indices`) and scored in batches;
+  compacted (:func:`compact_indices`) and scored in batches;
   the CPU tests' engine and the reference the kernel is held to on the
   card.
 
@@ -63,7 +61,7 @@ class Decoded(NamedTuple):
     pops: torch.Tensor      # (6,) int64 populations n_single .. n_rescan
     mit_sums: torch.Tensor  # (n + 1,) f64: the 1-2 hit cells' terms
     cfd_sums: torch.Tensor  # (n + 1,) f64
-    rows: RescanRows        # the >=3-hit chunks, capped at caps[5]
+    rows: RescanRows        # the >=3-hit chunks, at most cap_rescan
 
 
 def compact_indices(mask: torch.Tensor, cap: int, trim: bool) -> torch.Tensor:
@@ -84,7 +82,7 @@ def compact_indices(mask: torch.Tensor, cap: int, trim: bool) -> torch.Tensor:
 
 
 def check_inputs(q_sig, qsp, fo: FinderOut, boff, blen, entries, occ,
-                 tabs: ScoreTables, chunk, superchunk, caps):
+                 tabs: ScoreTables, chunk, superchunk, cap_rescan):
     """Raise on inputs the decode does not take."""
     check_tensors([("q_sig", q_sig, torch.int64, 1),
                    ("qsp", qsp, torch.int32, 3),
@@ -112,8 +110,8 @@ def check_inputs(q_sig, qsp, fo: FinderOut, boff, blen, entries, occ,
             or S * B * qb >= (1 << 31):
         raise ValueError("the page needs 1 <= n < 2^31 queries and fewer "
                          "than 2^31 slots")
-    if len(caps) != 7 or any(not 0 <= int(c) < (1 << 31) for c in caps):
-        raise ValueError("caps must be 7 integers in [0, 2^31)")
+    if not 0 <= int(cap_rescan) < (1 << 31):
+        raise ValueError("cap_rescan must be an integer in [0, 2^31)")
 
 
 # -- the kernel -----------------------------------------------------------
@@ -140,7 +138,7 @@ KERNEL = KernelLibrary("compact_decode.cu", _bind)
 def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
                    boff: torch.Tensor, blen: torch.Tensor,
                    entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
-                   superchunk: int, caps: tuple, tabs: ScoreTables,
+                   superchunk: int, cap_rescan: int, tabs: ScoreTables,
                    trim: bool) -> Decoded:
     """Steps 1-2 (module docstring) of one page on ``q_sig.device``.
 
@@ -148,24 +146,23 @@ def compact_decode(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
     fo the finder's cells; boff (S, B) int64 and blen (S, B) int32 bucket
     starts and lengths within a row of entries (S, epad) int64 and occ
     (S, epad) int32; ``chunk`` entries per chunk cell, ``superchunk``
-    chunks per superchunk cell (0: no such level); the seven caps (the
-    kernel reads caps[5], the rows; it counts every population and writes
-    nothing else that a cap bounds). A CUDA tensor launches the kernel (counted in
-    ``compact_decode.launches``); a CPU tensor runs
+    chunks per superchunk cell (0: no such level); ``cap_rescan`` the
+    rows the list holds at most. A CUDA tensor launches the kernel
+    (counted in ``compact_decode.launches``); a CPU tensor runs
     :func:`compact_decode_plain` (``trim`` cuts its compactions to their
     populations)."""
     check_inputs(q_sig, qsp, fo, boff, blen, entries, occ, tabs, chunk,
-                 superchunk, caps)
+                 superchunk, cap_rescan)
     dev = q_sig.device
     if dev.type == "cpu":
         return compact_decode_plain(
             q_sig, qsp, fo, boff, blen, entries, occ, chunk=chunk,
-            superchunk=superchunk, caps=caps, tabs=tabs, trim=trim)
+            superchunk=superchunk, cap_rescan=cap_rescan, tabs=tabs,
+            trim=trim)
     if dev.type != "cuda":
         raise ValueError(f"no compact decode for device {dev}")
     n = q_sig.numel()
     S, B, C, qb = fo.cnt.shape
-    cap_rescan = int(caps[5])
     # the six populations in column 0, one 128-B line each
     counters = torch.zeros((6, 16), dtype=torch.int64, device=dev)
     sums = torch.zeros((2, n + 1), dtype=torch.float64, device=dev)
@@ -200,18 +197,18 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
                          fo: FinderOut, boff: torch.Tensor,
                          blen: torch.Tensor, entries: torch.Tensor,
                          occ: torch.Tensor, *, chunk: int, superchunk: int,
-                         caps: tuple, tabs: ScoreTables,
+                         cap_rescan: int, tabs: ScoreTables,
                          trim: bool) -> Decoded:
-    """The same function in plain PyTorch: each level's cells compacted at
-    its cap with :func:`compact_indices` (cap-sized on the card, no host
-    sync) and the 1-2 hit cells of each batch scored by
+    """The same function in plain PyTorch: each level's cells compacted
+    with :func:`compact_indices` (to their population with ``trim``, else
+    at the mask's own size, with no host sync; the rows at ``cap_rescan``)
+    and the 1-2 hit cells of each batch scored by
     :func:`~.compact_rescan.pair_scores` and added with ``index_add_``."""
     compact_decode_plain.calls += 1
     dev = q_sig.device
     n = q_sig.numel()
     S, B, C, qb = fo.cnt.shape
     nchmax, nsc = fo.nchmax, fo.nsc
-    cap1, capm, capsc, capsr, capm2, capr, _ = caps
     epad = entries.shape[1]
     cnt_f = fo.cnt.reshape(-1)
     min_f = fo.rmin.reshape(-1)
@@ -231,6 +228,10 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
 
     def q_of(slot):
         return qsp_f[slot].clamp(max=n)
+
+    def every(mask):
+        """Indices of every True element of a 1-d mask."""
+        return compact_indices(mask, mask.numel(), trim)
 
     def add(hq, mit, cfd, w):
         mit_sums.index_add_(0, hq, (mit * w).sum(1, dtype=torch.float64))
@@ -255,7 +256,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
     slot_cnt = fo.cnt[:, :, tot, :].reshape(-1)
     direct = (slot_cnt == 1) | (slot_cnt == 2)
     n1 = direct.sum()
-    sidx = compact_indices(direct, cap1, trim)
+    sidx = every(direct)
     si = sidx.clamp(min=0)
     v1 = sidx >= 0
     cidx = cell_at(si, tot)
@@ -268,7 +269,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
     # their chunk cells. 1-2 hit chunk cells resolve pointwise.
     multi = slot_cnt >= 3
     nm = multi.sum()
-    midx = compact_indices(multi, capm, trim)
+    midx = every(multi)
     mi = midx.clamp(min=0)
     vm = (midx >= 0)[:, None]
     n_sc = n_sr = torch.zeros((), dtype=torch.int64, device=dev)
@@ -277,7 +278,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
         msc = torch.where(
             vm, cnt_f[cell_at(mi[:, None], cells[None, :])], 0)
         n_sc = (msc > 0).sum()
-        scz = compact_indices((msc > 0).reshape(-1), capsc, trim)
+        scz = every((msc > 0).reshape(-1))
         szi = scz.clamp(min=0)
         vsz = scz >= 0
         s_sc = szi % nsc
@@ -288,7 +289,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
                    max_f[cidx], vsz)
         c2sc = vsz & (scnt >= 3)
         n_sr = c2sc.sum()
-        sridx = compact_indices(c2sc, capsr, trim)
+        sridx = every(c2sc)
         sri = sridx.clamp(min=0)
         src_slot = sslot[sri]
         ch = (s_sc[sri][:, None] * superchunk
@@ -311,7 +312,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
         def chunk_of(z):
             return z % nchmax
     nc = (mc > 0).sum()
-    mz = compact_indices((mc > 0).reshape(-1), capm2, trim)
+    mz = every((mc > 0).reshape(-1))
     mzc = mz.clamp(min=0)
     vz = mz >= 0
     mslot = src_slot[mzc // width]
@@ -324,7 +325,7 @@ def compact_decode_plain(q_sig: torch.Tensor, qsp: torch.Tensor,
     # 3) >=3-hit chunks: the rescan list, one row per chunk
     c2 = vz & (mcnt >= 3)
     n2c = c2.sum()
-    ridx = compact_indices(c2, capr, trim)
+    ridx = compact_indices(c2, int(cap_rescan), trim)
     ri = ridx.clamp(min=0)
     rslot = mslot[ri]
     first = mchk[ri] * chunk

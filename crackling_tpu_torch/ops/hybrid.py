@@ -27,23 +27,6 @@ from .. import trace
 from ..index.build import IsslIndex
 
 
-def plan_query_occupancy(sigs: np.ndarray, S: int, B: int,
-                         slice_width: int, qb_cap: int):
-    """Padded max per-(slice, bucket) query occupancy QB — the only
-    data-dependent *shape* of the page program, a property of the query
-    page alone. Returns (None, needed) on qb_cap overflow."""
-    sigs = np.asarray(sigs, dtype=np.uint64)
-    counts = np.zeros((S, B), dtype=np.int64)
-    mask = np.uint64(B - 1)
-    for s in range(S):
-        vals = ((sigs >> np.uint64(s * slice_width)) & mask).astype(np.int64)
-        counts[s] = np.bincount(vals, minlength=B)
-    qb = int(counts.max())
-    if qb > qb_cap:
-        return None, qb
-    return -(-qb // 64) * 64, qb
-
-
 class _NativeExact:
     """score() adapter over native.exact_score_native (exact.cpp)."""
 

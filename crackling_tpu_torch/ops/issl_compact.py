@@ -2,11 +2,12 @@
 
 The PyTorch port of crackling_tpu/ops/issl_compact.py. One query page
 runs four steps, all on the scorer's device and with no host sync inside
-the page (every compaction is capped, as in the JAX program):
+the page (the rescan list alone is capped, at ``cap_rescan`` rows):
 
 1. **Slot plan** (:func:`plan_slots`): each (slice, bucket) of the index
    gets ``qb`` query slots holding the page's queries whose slice value
-   selects that bucket; spare slots hold the padding id ``n``.
+   selects that bucket; spare slots hold the padding id ``n``. ``qb``
+   (:func:`plan_query_occupancy`) is the page's only data-dependent shape.
 2. **Finder** (:func:`compact_finder`, the hand-written Hopper kernel on
    CUDA): per (chunk, slot) the hit count / rank-sum / min rank / max
    rank of the hit predicate (distance <= max_dist, first-clean-slice
@@ -19,9 +20,10 @@ the page (every compaction is capped, as in the JAX program):
    hand-written Hopper kernel on CUDA, one launch for the page's whole
    list), with the hit predicate and per-pair MIT/CFD evaluated and
    row-summed.
-4. Per-query MIT/CFD sums (f64) plus a 7-int header of compaction
-   populations return to the host, which checks them against the caps
-   the page ran with (grow-and-retry or split on overflow).
+4. Per-query MIT/CFD sums (f64) plus a 6-int header of compaction
+   populations return to the host. A page whose rescan rows passed the
+   cap it ran at runs again whole at a grown cap, or in halves where the
+   grown page would not fit the device.
 
 Per-hit arithmetic is f32 (MIT from the exact local-score table, CFD
 as the reference's penalty product in position order); each (query,
@@ -48,7 +50,6 @@ from .compact_decode import Decoded, compact_decode
 from .compact_finder import FinderOut, compact_finder, superchunk_cells
 from .compact_onehot import LANES, compact_finder_onehot, onehot_planes
 from .compact_rescan import RESCAN_BLOCK, ScoreTables, compact_rescan
-from .hybrid import plan_query_occupancy
 from .tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                      cfd_pos_penalties, mit_dense_table)
 
@@ -61,6 +62,8 @@ RANK_BOUND = 1 << 30
 # a finder cell's bytes: count, min and max rank (int32), rank sum (int64)
 CELL_BYTES = 4 + 4 + 4 + 8
 SLOT_ALIGN = 64     # slot counts are multiples of this (the finder's block)
+# the rescan rows' cap a scorer starts at (on CUDA its first page tunes it)
+CAP_RESCAN = 1 << 15
 # the JAX engine's one-hot plane budget, over its 128-lane plane bytes
 PLANE_BUDGET = 4 << 30
 JAX_PLANE_LANES = 128
@@ -76,23 +79,6 @@ def auto_superchunk(nchmax: int) -> int:
     return max(8, 4 * int(round(float(np.sqrt(nchmax)) / 4.0)))
 
 
-def normalize_caps(caps, nz_cap: int) -> tuple:
-    """Seven compaction capacities: direct 1-2 hit slots, >=3-hit slots,
-    nonzero superchunk cells, >=3-hit superchunk cells, nonzero chunk
-    cells, >=3-hit rescan chunks, and a seventh that nothing fills (its
-    population is always 0; kept so caps and page stats line up with the
-    JAX engine's)."""
-    if caps is None:
-        nz = int(nz_cap)
-        caps = (nz, max(1024, nz // 2), max(2048, nz),
-                max(1024, nz // 4), max(2048, nz), max(1024, nz // 4),
-                4 * max(1024, nz // 4))
-    caps = tuple(int(c) for c in caps)
-    if len(caps) != 7:
-        raise ValueError("caps must have 7 entries")
-    return caps
-
-
 def _quant_cap(pop: int, floor: int = 4096) -> int:
     """Smallest multiple of 4096 >= 1.25x the measured population
     (>= floor): the auto-tuned compaction capacity for a population.
@@ -101,6 +87,23 @@ def _quant_cap(pop: int, floor: int = 4096) -> int:
     jitter, and a page that does overflow grows its cap and retries."""
     need = max(floor, int(1.25 * pop) + 1)
     return -(-need // 4096) * 4096
+
+
+def plan_query_occupancy(sigs: np.ndarray, S: int, B: int,
+                         slice_width: int, qb_cap: int):
+    """Padded max per-(slice, bucket) query occupancy QB — the only
+    data-dependent *shape* of the page program, a property of the query
+    page alone. Returns (None, needed) on qb_cap overflow."""
+    sigs = np.asarray(sigs, dtype=np.uint64)
+    counts = np.zeros((S, B), dtype=np.int64)
+    mask = np.uint64(B - 1)
+    for s in range(S):
+        vals = ((sigs >> np.uint64(s * slice_width)) & mask).astype(np.int64)
+        counts[s] = np.bincount(vals, minlength=B)
+    qb = int(counts.max())
+    if qb > qb_cap:
+        return None, qb
+    return -(-qb // 64) * 64, qb
 
 
 def plan_slots(q_sig: torch.Tensor, S: int, B: int,
@@ -190,28 +193,27 @@ def score_tables(max_dist: int, device) -> ScoreTables:
 def decode_score(q_sig: torch.Tensor, qsp: torch.Tensor, fo: FinderOut,
                  boff: torch.Tensor, blen: torch.Tensor,
                  entries: torch.Tensor, occ: torch.Tensor, *, chunk: int,
-                 superchunk: int, max_dist: int, caps: tuple,
+                 superchunk: int, max_dist: int, cap_rescan: int,
                  tabs: ScoreTables, scan_width: int, trim: bool,
                  rescan_block: int = RESCAN_BLOCK):
     """Moment-tree decode and rescan of one page's finder output.
 
-    Returns (header, mit_sums, cfd_sums): header is the (7,) int64
+    Returns (header, mit_sums, cfd_sums): header is the (6,) int64
     compaction populations (n_single, n_mslot, n_scell, n_sresc,
-    n_mcell, n_rescan, 0), sums are (n,) f64. Populations above their
-    cap mean that step truncated and the sums are incomplete. Step 3 is
-    :func:`~.compact_rescan.compact_rescan` over the rows of steps 1-2,
-    :func:`~.compact_decode.compact_decode` (``rescan_block`` bounds the
-    plain rescan's temporaries)."""
+    n_mcell, n_rescan), sums are (n,) f64. ``n_rescan`` above
+    ``cap_rescan`` means the rescan list was cut and the sums are
+    incomplete. Step 3 is :func:`~.compact_rescan.compact_rescan` over
+    the rows of steps 1-2, :func:`~.compact_decode.compact_decode`
+    (``rescan_block`` bounds the plain rescan's temporaries)."""
     n = q_sig.numel()
     d = compact_decode(q_sig, qsp, fo, boff, blen, entries, occ,
-                       chunk=chunk, superchunk=superchunk, caps=caps,
-                       tabs=tabs, trim=trim)
+                       chunk=chunk, superchunk=superchunk,
+                       cap_rescan=cap_rescan, tabs=tabs, trim=trim)
     with trace.span("compact.decode.rescan"):
         compact_rescan(d.rows, entries.reshape(-1), occ.reshape(-1), tabs,
                        d.mit_sums, d.cfd_sums, n=n, scan_width=scan_width,
                        max_dist=max_dist, rescan_block=rescan_block)
-    header = torch.cat([d.pops, d.pops.new_zeros(1)])
-    return header, d.mit_sums[:n], d.cfd_sums[:n]
+    return d.pops, d.mit_sums[:n], d.cfd_sums[:n]
 
 
 class CompactIsslScorer:
@@ -226,11 +228,8 @@ class CompactIsslScorer:
 
     def __init__(self, index: IsslIndex, max_dist: int | None = None,
                  query_page: int = 65536, chunk: int = 4096,
-                 qb_cap: int = 512, nz_cap: int = 1 << 17,
-                 caps: tuple | None = None,
-                 superchunk: int | None = None,
+                 qb_cap: int = 512, superchunk: int | None = None,
                  rescan_block: int | None = None,
-                 auto_caps: bool | None = None,
                  onehot: bool | None = None, reserve: int | None = None,
                  device=None):
         self.device = resolve_device(device)
@@ -243,24 +242,19 @@ class CompactIsslScorer:
         self.query_page = int(query_page)
         self.chunk = int(chunk)
         self.qb_cap = int(qb_cap)
-        # compaction capacities: every decode gather/score runs at cap
-        # size on the GPU. ``caps`` pins all seven and an overflow splits
-        # the page in half; with caps=None on CUDA the scorer auto-tunes:
-        # the first page runs at the generous nz_cap defaults, caps
-        # shrink to ~1.25x its measured populations, and later overflows
-        # grow the exceeded cap and retry instead of splitting. A page
-        # shorter than the tuning page runs at caps scaled to its length
-        # (``_caps(rows)``), each at least its own floor, which a scaled
-        # page's overflow grows
-        (self.cap_single, self.cap_mslot, self.cap_scell, self.cap_sresc,
-         self.cap_mcell, self.cap_rescan,
-         self.cap_hits) = normalize_caps(caps, nz_cap)
-        if auto_caps is None:
-            auto_caps = caps is None and self.device.type == "cuda"
-        self._auto = bool(auto_caps)
-        self._tuned = False
+        # the rescan rows' capacity, the only one the decode bounds: a
+        # page over its cap grows it and runs again. On CUDA, where the
+        # row block and the rescan's padding run at cap size, the first
+        # page runs at CAP_RESCAN and the cap then shrinks to ~1.25x
+        # its measured rows; the CPU's plain decode trims the list to its
+        # rows, so the cap costs nothing there and stays. A page shorter
+        # than the tuning page runs at the cap scaled to its length
+        # (``_cap(rows)``), at least a floor, which a scaled page's
+        # overflow grows
+        self.cap_rescan = CAP_RESCAN
+        self._tuned = self.device.type != "cuda"
         self._cap_rows = 0              # the tuning page's guides; 0: none
-        self._cap_floor = (0,) * 7
+        self._cap_floor = 0
         self._drained_rows = 0          # guides of the last drained page
         self.S = index.slice_count
         self.B = index.bucket_count
@@ -324,7 +318,7 @@ class CompactIsslScorer:
         self.planes = (onehot_planes(self.entries, index.seq_length)
                        if self.onehot else None)
         # per-page compaction populations (n_single, n_mslot, n_scell,
-        # n_sresc, n_mcell, n_rescan, 0) recorded by every drain — the
+        # n_sresc, n_mcell, n_rescan) recorded by every drain — the
         # cap-tuning instrumentation
         self.page_stats: list[tuple[int, ...]] = []
         self._fit_pages()
@@ -377,7 +371,7 @@ class CompactIsslScorer:
         allocates: its finder cells, slot plan and signatures, and its
         decode's counters, sums and rescan rows (at the cap it runs at)."""
         return (self._slot_bytes * qb + 8 * n + 2 * 8 * (n + 1)
-                + 6 * 16 * 8 + 6 * 8 * self._caps(n)[5])
+                + 6 * 16 * 8 + 6 * 8 * self._cap(n))
 
     def _fit_pages(self):
         """Size the pages to the device, once the lists are on it: where a
@@ -387,11 +381,12 @@ class CompactIsslScorer:
         ``query_page`` in the same ratio, so a page's occupancy keeps its
         share of the cap. Pages that fit keep both; where fewer than
         SLOT_ALIGN slots fit, ValueError, naming the bytes needed and
-        free."""
+        free. The room stays ``self.room``: a page whose rows cap grows
+        past it runs in halves."""
         free = free_bytes(self.device)
         room = free - self.reserve
-        room -= room // 16
-        fit = (room - self.page_bytes(0, self.query_page)) \
+        self.room = room - room // 16
+        fit = (self.room - self.page_bytes(0, self.query_page)) \
             // self._slot_bytes
         fit = fit // SLOT_ALIGN * SLOT_ALIGN
         if fit < SLOT_ALIGN:
@@ -406,22 +401,15 @@ class CompactIsslScorer:
                                   self.query_page * fit // self.qb_cap)
             self.qb_cap = fit
 
-    def _caps(self, rows: int | None = None):
-        """The seven caps, or those a page of ``rows`` guides runs at:
-        once auto caps are tuned on a longer page, each scaled by ``rows``
-        over its length to the 4096 grain, and at least its floor."""
-        caps = (self.cap_single, self.cap_mslot, self.cap_scell,
-                self.cap_sresc, self.cap_mcell, self.cap_rescan,
-                self.cap_hits)
+    def _cap(self, rows: int | None = None) -> int:
+        """The rows cap, or the one a page of ``rows`` guides runs at: once
+        tuned on a longer page, scaled by ``rows`` over its length to the
+        4096 grain, and at least its floor."""
+        cap = self.cap_rescan
         if rows is None or rows >= self._cap_rows:
-            return caps
-        scaled = (-(-c * rows // self._cap_rows) for c in caps)
-        return tuple(min(c, max(f, -(-x // 4096) * 4096))
-                     for c, f, x in zip(caps, self._cap_floor, scaled))
-
-    def _set_caps(self, caps):
-        (self.cap_single, self.cap_mslot, self.cap_scell, self.cap_sresc,
-         self.cap_mcell, self.cap_rescan, self.cap_hits) = caps
+            return cap
+        scaled = -(-cap * rows // self._cap_rows)
+        return min(cap, max(self._cap_floor, -(-scaled // 4096) * 4096))
 
     def query_tensor(self, page: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(
@@ -448,7 +436,7 @@ class CompactIsslScorer:
             q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
             self.entries, self.occ, chunk=self.chunk,
             superchunk=self.superchunk, max_dist=self.max_dist,
-            caps=self._caps(q_sig.shape[0]), tabs=self.tables,
+            cap_rescan=self._cap(q_sig.shape[0]), tabs=self.tables,
             rescan_block=self.rescan_block, scan_width=self._scan_width,
             trim=self.device.type == "cpu")
 
@@ -458,7 +446,7 @@ class CompactIsslScorer:
         return compact_decode(
             q_sig, qsp, fo, self.bucket_offsets, self.bucket_lens,
             self.entries, self.occ, chunk=self.chunk,
-            superchunk=self.superchunk, caps=self._caps(q_sig.shape[0]),
+            superchunk=self.superchunk, cap_rescan=self._cap(q_sig.shape[0]),
             tabs=self.tables, trim=self.device.type == "cpu")
 
     def run_page(self, page: np.ndarray, qb: int):
@@ -497,11 +485,11 @@ class CompactIsslScorer:
                 raise RuntimeError("query bucket overflow; raise qb_cap")
             self._halve(pos, page, pending)
             return
-        # record the caps the program RAN with: self._caps() can grow
+        # record the cap the program RAN at: self._cap() can grow
         # mid-drain when an earlier page overflows, and a later page that
-        # ran under the old smaller caps must still be checked against
-        # those (its compaction truncated at them)
-        pending.append((pos, page, self._caps(page.shape[0]),
+        # ran under the old smaller cap must still be checked against it
+        # (its rescan list was cut there)
+        pending.append((pos, page, qb, self._cap(page.shape[0]),
                         self.run_page(page, qb)))
         trace.count("compact.pages")
         if trace.active():
@@ -518,51 +506,51 @@ class CompactIsslScorer:
         for pos, page in pages:
             with trace.span("compact.dispatch"):
                 self._dispatch(pos, page, pending)
-        # drain after every page is enqueued; overflowed pages grow their
-        # caps and retry (auto mode) or split in half (explicit caps)
+        # drain after every page is enqueued; a page over its rows cap
+        # grows the cap and runs again, whole where it still fits the room,
+        # else in halves
         while pending:
             retry = []
-            for pos, page, ran_caps, (header, m, c) in pending:
+            for pos, page, qb, ran_cap, (header, m, c) in pending:
                 with trace.span("compact.drain"):
                     with trace.span("compact.drain.wait"):
                         header = header.cpu()
                     pops = tuple(int(x) for x in header)
                     self.page_stats.append(pops)
                     self._drained_rows = page.shape[0]
-                    if any(p > cap for p, cap in zip(pops, ran_caps)):
+                    if pops[5] > ran_cap:
                         trace.count("compact.retries")
-                        if self._auto:
-                            self._grow_caps(pops, ran_caps, page.shape[0])
-                            retry.append((pos, page, False))
-                        else:
-                            if page.shape[0] < 2:
-                                raise RuntimeError(
-                                    "hit compaction overflow on a single "
-                                    "query; raise nz_cap")
-                            retry.append((pos, page, True))
+                        retry.append((pos, page, self._grow_cap(
+                            pops[5], page.shape[0], qb)))
                         continue
                     at = slice(pos.start, pos.stop, pos.step)
                     out_mit[at] = m.cpu().numpy()
                     out_cfd[at] = c.cpu().numpy()
             pending = []
-            for pos, page, split in retry:
+            for pos, page, fits in retry:
                 with trace.span("compact.dispatch"):
-                    if split:
+                    if fits:
+                        self._dispatch(pos, page, pending)
+                    elif page.shape[0] > 1:
+                        trace.count("compact.retry_halves")
                         self._halve(pos, page, pending)
                     else:
-                        self._dispatch(pos, page, pending)
+                        raise RuntimeError(
+                            f"the rescan rows of one guide ({self._cap(1):,}"
+                            f" at its cap) do not fit the {self.room:,} B "
+                            f"of room for a page on {self.device}")
 
-    def _grow_caps(self, pops, ran_caps, rows):
-        """Auto caps after a page of ``rows`` guides overflowed: a cap
-        below its population grows to cover it; on a page shorter than the
-        tuning page, so does the floor of each cap the page overflowed, so
-        the retry fits and longer pages keep their caps."""
-        self._set_caps(tuple(_quant_cap(p) if p > cap else cap
-                             for p, cap in zip(pops, self._caps())))
+    def _grow_cap(self, pop: int, rows: int, qb: int) -> bool:
+        """The rows cap after a page of ``rows`` guides at ``qb`` slots
+        listed ``pop`` rows past the cap it ran at: a cap below ``pop``
+        grows to cover it; on a page shorter than the tuning page, so does
+        the floor, so the retry fits and longer pages keep their cap.
+        Whether the page fits the room at the grown cap."""
+        if pop > self.cap_rescan:
+            self.cap_rescan = _quant_cap(pop)
         if rows < self._cap_rows:
-            self._cap_floor = tuple(
-                max(f, _quant_cap(p)) if p > ran else f
-                for p, ran, f in zip(pops, ran_caps, self._cap_floor))
+            self._cap_floor = max(self._cap_floor, _quant_cap(pop))
+        return self.page_bytes(qb, rows) <= self.room
 
     def _pages(self, sigs: np.ndarray) -> list:
         """The batch cut into (positions, page) pairs: ``page`` is a view of
@@ -596,13 +584,11 @@ class CompactIsslScorer:
         out_cfd = np.zeros(n, dtype=np.float64)
         with trace.span("compact.score"):
             pages = self._pages(sigs)
-            if self._auto and not self._tuned and pages:
-                # run the first page at the generous defaults, then shrink
-                # every cap to ~1.25x its measured population before the
-                # rest
+            if not self._tuned and pages:
+                # run the first page at the initial cap, then shrink it to
+                # ~1.25x the rows it listed before the rest
                 self._run_pages(pages[:1], out_mit, out_cfd)
-                self._set_caps(tuple(
-                    _quant_cap(p) for p in self.page_stats[-1]))
+                self.cap_rescan = _quant_cap(self.page_stats[-1][5])
                 self._cap_rows = self._drained_rows
                 self._tuned = True
                 pages = pages[1:]

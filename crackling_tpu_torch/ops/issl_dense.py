@@ -7,8 +7,8 @@ inside the page:
 1. **Slot plan** (``issl_compact.plan_slots``): each (slice, bucket) of
    the index gets ``qb`` query slots holding the page's queries whose
    slice value selects that bucket; spare slots hold the padding id
-   ``n``. ``qb`` (``hybrid.plan_query_occupancy``) is the page's only
-   data-dependent shape.
+   ``n``. ``qb`` (``issl_compact.plan_query_occupancy``) is the page's
+   only data-dependent shape.
 2. **Scan** (:func:`~crackling_tpu_torch.ops.fullscan.dense_scan`, the
    hand-written Hopper kernel on CUDA): per slot, the occurrence-weighted
    MIT and CFD sums of every hit (distance <= max_dist, first-clean-slice
@@ -36,9 +36,8 @@ from .. import trace
 from ..device import resolve_device
 from ..index.build import IsslIndex
 from .fullscan import dense_scan
-from .hybrid import plan_query_occupancy
-from .issl_compact import (ALIGN, ScoreTables, aligned_lists, plan_slots,
-                           score_tables)
+from .issl_compact import (ALIGN, ScoreTables, aligned_lists,
+                           plan_query_occupancy, plan_slots, score_tables)
 
 
 def dense_page(entries: torch.Tensor, occ: torch.Tensor, boff: torch.Tensor,

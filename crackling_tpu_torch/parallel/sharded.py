@@ -267,8 +267,8 @@ class ShardedCompactIsslScorer(_ShardedScorer):
 
     def __init__(self, index: IsslIndex | None, mesh: Mesh,
                  max_dist: int | None = None, query_page: int = 65536,
-                 chunk: int = 4096, qb_cap: int = 512, nz_cap: int = 1 << 17,
-                 caps: tuple | None = None, superchunk: int | None = None, *,
+                 chunk: int = 4096, qb_cap: int = 512,
+                 superchunk: int | None = None, *,
                  local_shards: list[IsslIndex] | None = None):
         local_shards = self._local_shards(index, mesh, local_shards)
         deepest = _max_bucket(local_shards, mesh)
@@ -281,6 +281,5 @@ class ShardedCompactIsslScorer(_ShardedScorer):
             mesh, local_shards,
             lambda shard, dev: issl_compact.CompactIsslScorer(
                 shard, max_dist=max_dist, query_page=query_page, chunk=chunk,
-                qb_cap=qb_cap, nz_cap=nz_cap, caps=caps,
-                superchunk=superchunk, onehot=False, reserve=0,
-                device=dev))
+                qb_cap=qb_cap, superchunk=superchunk, onehot=False,
+                reserve=0, device=dev))

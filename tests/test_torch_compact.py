@@ -4,7 +4,8 @@ Inputs are ``tests/test_compact.py``'s datasets (made with numpy from a
 seed), handed to both packages through ``convert.index_from_arrays``.
 On the CPU the port runs its plain finder; the JAX engine runs its Pallas
 kernel in interpret mode, as its own tests do. Tolerances: finder cells
-exact; compaction populations (``page_stats``) exact under the same caps;
+exact; compaction populations (``page_stats``) exact, the six the JAX
+engine's tuples open with;
 sums within rtol 1e-5 / atol 1e-5 (f32 per-hit arithmetic, summed in
 different orders), as in test_compact.py. The re-paging tests make a sorted
 batch with numpy from a seed, as the off-target stage sends it, and hold
@@ -23,12 +24,12 @@ from crackling_tpu_torch.convert import index_from_arrays
 from crackling_tpu_torch.ops.compact_finder import (RANK_EMPTY,
                                                     compact_finder,
                                                     superchunk_cells)
-from crackling_tpu_torch.ops.issl_compact import (ALIGN, CompactIsslScorer,
+from crackling_tpu_torch.index import build_index
+from crackling_tpu_torch.ops.issl_compact import (ALIGN, CAP_RESCAN,
+                                                  CompactIsslScorer,
                                                   _quant_cap, plan_slots)
 from test_band_probe import COMPACT_MARGIN, adversarial  # noqa: F401
 from test_compact import data, deep_data  # noqa: F401
-
-TINY_SC_CAPS = (1 << 17, 1 << 16, 8, 4, 1 << 17, 1 << 15, 1 << 17)
 
 
 def port_index(index):
@@ -37,6 +38,23 @@ def port_index(index):
         seq_count=index.seq_count, site_sigs=index.site_sigs,
         occurrences=index.occurrences, order=index.order,
         bucket_offsets=index.bucket_offsets))
+
+
+def triplets(sigs, positions=(16, 17, 18)):
+    """Three one-base mutants of each signature, one at each position:
+    at slice 4's positions (the default) all three match their guide in
+    slice 0, so the guide's slice-0 slot holds its own site and the three
+    in one chunk, a rescan row; at slice 0's, in slice 1."""
+    sigs = np.asarray(sigs, dtype=np.uint64)
+    return np.concatenate([sigs ^ (np.uint64(1) << np.uint64(2 * p))
+                           for p in positions])
+
+
+def with_rows(index, queries):
+    """``index``'s sites and :func:`triplets` of ``queries``: a rescan row
+    for each guide."""
+    return build_index(np.concatenate(
+        [np.repeat(index.site_sigs, index.occurrences), triplets(queries)]))
 
 
 @pytest.fixture(scope="module")
@@ -149,10 +167,10 @@ def test_compact_matches_jax(datasets, jax_runs, case):
     name, kw = JAX_CASES[case]
     index, queries = datasets[name]
     sc = CompactIsslScorer(port_index(index), max_dist=4, device="cpu",
-                           auto_caps=False, **kw)
+                           **kw)
     sums = sc.score_sums(queries)
     jax_sums, jax_stats = jax_runs[case]
-    assert sc.page_stats == jax_stats
+    assert sc.page_stats == [p[:6] for p in jax_stats]
     _assert_sums(sums, jax_sums)
     _assert_sums(sums, score_bruteforce(queries, index.site_sigs,
                                         index.occurrences, 4))
@@ -170,50 +188,70 @@ def _queries_page_of_sites(index):
 
 
 CAP_CASES = {
+    # (dataset, scorer options, the rows cap it starts at (None: the
+    # default), mode)
     # two pages (page < n) reproduce the single-page sums
-    "paging": ("data", dict(query_page=16), None),
-    # cap_single < the page's direct slots: the page splits and retries
-    "overflow-splits": ("data", dict(query_page=64, nz_cap=24), None),
-    # superchunk-level caps below the populations: split and retry
-    "sc-overflow-splits": ("deep", dict(query_page=32, superchunk=2,
-                                        caps=TINY_SC_CAPS), None),
+    "paging": ("data", dict(query_page=16), None, ()),
+    # the rows cap below the page's rows: the page grows it and runs
+    # again whole
+    "rows-overflow-grows": ("data", dict(query_page=64), 0, ("rows",)),
+    # the same below a page whose superchunk levels fire
+    "sc-rows-overflow-grows": ("deep", dict(query_page=32, superchunk=2),
+                               8, ()),
     # the flat (no superchunk) decode of a multi-chunk bucket
-    "flat-decode": ("deep", dict(query_page=32, superchunk=0), None),
-    # auto caps: the first page tunes every cap to its population
-    "auto-tune": ("data", dict(query_page=16, auto_caps=True), None),
-    # auto caps starting far too small: a page overflows, grows, retries
-    "auto-grow": ("data", dict(query_page=64, nz_cap=8, auto_caps=True),
-                  "tuned"),
-    # two pages dispatched under the same tiny caps; the second is checked
-    # against the caps it ran with, not the caps the first one grew
-    "dispatch-caps": ("data", dict(query_page=8, nz_cap=4, auto_caps=True),
-                      "tuned-sites"),
+    "flat-decode": ("deep", dict(query_page=32, superchunk=0), None, ()),
+    # the first page tunes the cap to its rows (as on the card)
+    "auto-tune": ("data", dict(query_page=16), None, ("tune",)),
+    # a tuning page over a cap far too small overflows, grows, runs again,
+    # and tunes the cap to the rows of its run
+    "auto-grow": ("deep", dict(query_page=32), 8, ("tune",)),
+    # two pages dispatched under the same tiny cap; the second is checked
+    # against the cap it ran with, not the cap the first one grew
+    "dispatch-caps": ("data", dict(query_page=8), 4, ("sites", "rows")),
 }
 
 
 @pytest.mark.parametrize("case", list(CAP_CASES))
 def test_compact_paging_and_caps_vs_bruteforce(datasets, case):
-    name, kw, mode = CAP_CASES[case]
+    name, kw, cap, mode = CAP_CASES[case]
     index, queries = datasets[name]
-    if mode == "tuned-sites":
+    if "sites" in mode:
         queries = _queries_page_of_sites(index)
-    sc = CompactIsslScorer(port_index(index), max_dist=4, chunk=1024,
-                           device="cpu", **kw)
-    if mode:
-        sc._tuned = True                # skip first-page tuning
-    sums = sc.score_sums(queries)
+    index = with_rows(index, queries) if "rows" in mode else \
+        port_index(index)
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           **kw)
+    assert sc._tuned                    # the CPU keeps its cap untuned
+    if cap is not None:
+        sc.cap_rescan = cap
+    if "tune" in mode:
+        sc._tuned = False               # tune on the first page
+    trace.enable()
+    try:
+        sums = sc.score_sums(queries)
+        counters = trace.session().counters
+    finally:
+        trace.disable()
     _assert_sums(sums, score_bruteforce(queries, index.site_sigs,
                                         index.occurrences, 4))
     stats = np.array(sc.page_stats)
-    if case in ("overflow-splits", "sc-overflow-splits"):
-        assert len(sc.page_stats) > 1
+    if case in ("rows-overflow-grows", "sc-rows-overflow-grows"):
+        # one page, run twice whole: no split, the same populations
+        assert len(sc.page_stats) == 2 == counters["compact.pages"]
+        assert sc.page_stats[0] == sc.page_stats[1]
+        assert counters["compact.retries"] == 1
+        assert "compact.splits" not in counters
+        assert sc.cap_rescan >= stats[0, 5] > cap
+        if case == "sc-rows-overflow-grows":
+            assert stats[0, 2] >= stats[0, 3] > 0
     elif case == "flat-decode":
         assert stats.max(0)[4] > 0 and stats.max(0)[5] > 0
     elif case == "auto-tune":
-        assert sc._tuned and sc.cap_single < (1 << 17)
-        assert all(c >= p for c, p in zip(sc._caps(), sc.page_stats[0]))
+        assert sc._tuned and sc.cap_rescan < CAP_RESCAN
+        assert sc.cap_rescan == _quant_cap(sc.page_stats[0][5])
     elif case == "auto-grow":
-        assert len(sc.page_stats) > 1 and sc.cap_single > 8
+        assert len(sc.page_stats) == 2 and counters["compact.retries"] == 1
+        assert sc.cap_rescan == _quant_cap(sc.page_stats[-1][5]) > 8
     elif case == "dispatch-caps":
         n_pages = -(-queries.shape[0] // 8)
         assert n_pages >= 2 and len(sc.page_stats) >= 2 * n_pages
@@ -391,48 +429,50 @@ def test_halving_a_strided_page_keeps_its_positions(sorted_world,
     _assert_sums((out[0, 1::2], out[1, 1::2]), brute(index, crowd[1::2]))
 
 
-# -- auto caps on a page shorter than the tuning page ----------------------
+# -- the rows cap on a page shorter than the tuning page, and its growth --
 
 
 @pytest.fixture(scope="module")
-def direct_world():
-    """4,096 shuffled distinct guides and an index of each and a one-base
-    mutant of each: a 4,096-guide page fills ~4,700 direct slots, past the
-    4,096 grain, and a 1,024-guide page ~1,200."""
+def rows_world():
+    """4,096 shuffled distinct guides and an index of each with
+    :func:`triplets` of it at slice 4's positions and at slice 0's: two
+    rescan rows a guide, ~8,200 on a 4,096-guide page (past the 4,096
+    grain) and ~2,050 on a 1,024-guide page."""
     rng = np.random.default_rng(17)
     batch = np.unique(rng.integers(0, 1 << 40, size=4096).astype(np.uint64))
     rng.shuffle(batch)
-    from crackling_tpu_torch.index import build_index
+    return build_index(np.concatenate(
+        [batch, triplets(batch), triplets(batch, (0, 1, 2))])), batch
 
-    return build_index(np.concatenate([batch, mutants(rng, batch)])), batch
 
-
-def caps_spy(monkeypatch):
-    """The caps of each decode the page program runs."""
+def cap_spy(monkeypatch):
+    """The rows cap of each decode the page program runs."""
     from crackling_tpu_torch.ops import issl_compact
 
     ran, decode = [], issl_compact.decode_score
 
-    def spy(*args, caps, **kw):
-        ran.append(caps)
-        return decode(*args, caps=caps, **kw)
+    def spy(*args, cap_rescan, **kw):
+        ran.append(cap_rescan)
+        return decode(*args, cap_rescan=cap_rescan, **kw)
 
     monkeypatch.setattr(issl_compact, "decode_score", spy)
     return ran
 
 
-def test_auto_caps_scale_to_a_shorter_page(direct_world, one_thread,
+def test_auto_caps_scale_to_a_shorter_page(rows_world, one_thread,
                                            monkeypatch):
-    """Caps tuned on a 4,096-guide page: a 1,024-guide page runs at caps
-    scaled to a quarter, to the 4,096 grain, and needs no retry."""
-    index, batch = direct_world
+    """The rows cap tuned on a 4,096-guide page: a 1,024-guide page runs
+    at the cap scaled to a quarter, to the 4,096 grain, and needs no
+    retry."""
+    index, batch = rows_world
     sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
-                           query_page=4096, auto_caps=True)
+                           query_page=4096)
+    sc._tuned = False                   # tune on the first page, as on CUDA
     sc.score_sums(batch)
-    base = sc._caps()
-    assert sc._cap_rows == 4096 and base[0] == _quant_cap(
-        sc.page_stats[0][0]) > 4096
-    ran = caps_spy(monkeypatch)
+    base = sc._cap()
+    assert sc._cap_rows == 4096 and base == _quant_cap(
+        sc.page_stats[0][5]) > 4096
+    ran = cap_spy(monkeypatch)
     trace.enable()
     try:
         sums = sc.score_sums(batch[:1024])
@@ -440,21 +480,21 @@ def test_auto_caps_scale_to_a_shorter_page(direct_world, one_thread,
     finally:
         trace.disable()
     _assert_sums(sums, brute(index, batch[:1024]))
-    assert ran == [sc._caps(1024)] and ran[0][0] == 4096 < base[0]
-    assert "compact.retries" not in s.counters and sc._caps() == base
+    assert ran == [sc._cap(1024)] and ran[0] == 4096 < base
+    assert "compact.retries" not in s.counters and sc._cap() == base
 
 
-def test_a_scaled_page_over_its_caps_grows_their_floor(direct_world,
+def test_a_scaled_page_over_its_caps_grows_their_floor(rows_world,
                                                         one_thread):
-    """A page whose caps, scaled from a far longer tuning page, fall below
-    its population retries once at the floor it grew, and the caps of the
-    longer pages stay as they were."""
-    index, batch = direct_world
+    """A page whose rows cap, scaled from a far longer tuning page, falls
+    below its rows retries once at the floor it grew, and the cap of the
+    longer pages stays as it was."""
+    index, batch = rows_world
     sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
-                           query_page=4096, auto_caps=True)
+                           query_page=4096)
     sc._tuned, sc._cap_rows = True, 1 << 20
-    base = sc._caps()
-    assert sc._caps(4096)[0] == 4096
+    base = sc._cap()
+    assert sc._cap(4096) == 4096
     trace.enable()
     try:
         sums = sc.score_sums(batch)
@@ -462,10 +502,60 @@ def test_a_scaled_page_over_its_caps_grows_their_floor(direct_world,
     finally:
         trace.disable()
     _assert_sums(sums, brute(index, batch))
-    pop = sc.page_stats[0][0]
+    pop = sc.page_stats[0][5]
     assert pop > 4096 and s.counters["compact.retries"] == 1
-    assert sc._cap_floor[0] == _quant_cap(pop) == sc._caps(4096)[0]
-    assert sc._caps() == base == sc._caps(1 << 20)
+    assert sc._cap_floor == _quant_cap(pop) == sc._cap(4096)
+    assert sc._cap() == base == sc._cap(1 << 20)
+
+
+def test_an_overflowed_page_runs_again_whole(rows_world, one_thread,
+                                             monkeypatch):
+    """On the CPU as on the card, a page whose rows pass the cap it ran at
+    grows the cap and runs again whole: one retry, no split."""
+    index, batch = rows_world
+    sc = CompactIsslScorer(index, max_dist=4, chunk=1024, device="cpu",
+                           query_page=4096)
+    sc.cap_rescan = 4096
+    sums, s, ran = traced_pages(sc, batch, monkeypatch)
+    _assert_sums(sums, brute(index, batch))
+    assert s.counters["compact.retries"] == 1
+    assert "compact.splits" not in s.counters
+    assert "compact.retry_halves" not in s.counters
+    assert len(ran) == len(sc.page_stats) == 2
+    for page in ran:
+        np.testing.assert_array_equal(page, batch)
+    assert sc.page_stats[0] == sc.page_stats[1]
+    assert sc.page_stats[0][5] > 4096
+
+
+def test_a_grown_page_past_the_room_halves(rows_world, one_thread,
+                                           monkeypatch):
+    """A page whose grown rows cap would not fit the room fixed at
+    construction (the free memory less ``reserve`` and a sixteenth) runs
+    in halves instead, each at the grown cap, and counts the halving."""
+    from crackling_tpu_torch.ops import issl_compact
+
+    index, batch = rows_world
+    monkeypatch.setattr(issl_compact, "CAP_RESCAN", 4096)
+    kw = dict(max_dist=4, chunk=1024, device="cpu", query_page=4096)
+    qb = CompactIsslScorer(index, **kw)._plan(batch)[0]
+    kw["qb_cap"] = qb
+    small = CompactIsslScorer(index, **kw).page_bytes(qb, 4096)
+    big = 1 << 40
+    monkeypatch.setattr(issl_compact, "free_bytes", lambda d: big)
+    sc = CompactIsslScorer(index, reserve=big - (-(-small * 16 // 15)),
+                           **kw)
+    assert (sc.qb_cap, sc.query_page) == (qb, 4096)
+    sums, s, ran = traced_pages(sc, batch, monkeypatch)
+    _assert_sums(sums, brute(index, batch))
+    grown = small + 6 * 8 * (_quant_cap(sc.page_stats[0][5]) - 4096)
+    assert small <= sc.room < grown
+    assert s.counters["compact.retries"] == 1
+    assert s.counters["compact.retry_halves"] == 1
+    assert "compact.splits" not in s.counters
+    assert len(ran) == len(sc.page_stats) == 3
+    for page, want in zip(ran, (batch, batch[:2048], batch[2048:])):
+        np.testing.assert_array_equal(page, want)
 
 
 # -- pages sized to the device's free memory -------------------------------

@@ -12,8 +12,11 @@ set sorted by (hq, start), sums within rtol 1e-12 (the same f32 terms,
 summed in f64 in another order). The index is made with numpy from a seed:
 a bucket of ~3,000 sites (3 chunks of 1,024, so with ``superchunk`` 2 the
 last superchunk overhangs) whose clusters give 1-2-hit and >=3-hit cells at
-every level, single hits elsewhere, absent queries and padding slots. A cap
-below its population at any level must flag the page. The plain version's
+every level, single hits elsewhere, absent queries and padding slots. A
+rows cap below the page's rows (none of them, one, a quarter, a half, all
+but two, all but one) must cut the list there to rows of the uncapped
+list, flag the page, and leave every level's population as it was. The
+plain version's
 rows, sorted so that each chunk's are consecutive (the kernel's order),
 give the same steps 1-3 sums as its own order. The wrapper on CPU
 tensors runs the plain version; on the card it launches the kernel, held
@@ -40,7 +43,7 @@ from crackling_tpu_torch.ops.tables import (CFD_PAM_NGG_INDEX,
                                             precalculated_mit_scores)
 
 CHUNK = 1024
-WIDE = (1 << 17,) * 7           # caps no population reaches
+WIDE = 1 << 17                  # a rows cap no page reaches
 SIG40 = (1 << 40) - 1
 
 
@@ -94,7 +97,7 @@ def _page(world, max_dist, superchunk, device="cpu"):
     bucket, so every bucket has padding slots."""
     index, queries = world
     sc = CompactIsslScorer(index, max_dist=max_dist, chunk=CHUNK,
-                           superchunk=superchunk, caps=WIDE, device="cpu")
+                           superchunk=superchunk, device="cpu")
     S, B = sc.S, sc.B
     vals = (queries[None, :].astype(np.int64)
             >> (8 * np.arange(S)[:, None])) & (B - 1)
@@ -114,10 +117,10 @@ def _page(world, max_dist, superchunk, device="cpu"):
     return sc, q, qsp, fo
 
 
-def _decode(fn, sc, q, qsp, fo, caps=WIDE):
+def _decode(fn, sc, q, qsp, fo, cap=WIDE):
     return fn(q, qsp, fo, sc.bucket_offsets, sc.bucket_lens, sc.entries,
-              sc.occ, chunk=sc.chunk, superchunk=sc.superchunk, caps=caps,
-              tabs=sc.tables, trim=q.device.type == "cpu")
+              sc.occ, chunk=sc.chunk, superchunk=sc.superchunk,
+              cap_rescan=cap, tabs=sc.tables, trim=q.device.type == "cpu")
 
 
 def _brute(sc, queries, qsp, fo):
@@ -257,18 +260,37 @@ def test_rows_grouped_by_chunk_give_the_same_sums(world, max_dist,
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
 
 
-@pytest.mark.parametrize("level", range(6))
-def test_a_cap_below_its_population_flags_the_page(world, level):
+# where the rows cap cuts the page's rows: none listed, one, a quarter, a
+# half, all but two, all but one
+CUTS = (lambda r: 0, lambda r: 1, lambda r: r // 4, lambda r: r // 2,
+        lambda r: r - 2, lambda r: r - 1)
+
+
+def _capped(fn, world, cut):
+    """The page's walk (the numpy count over the cells), its uncapped
+    decode and its decode at the rows cap ``CUTS[cut]`` of its rows."""
     sc, q, qsp, fo = _page(world, 4, 2)
-    true = _decode(cd.compact_decode_plain, sc, q, qsp, fo).pops.tolist()
-    assert true[level] > 0
-    caps = list(WIDE)
-    caps[level] = true[level] - 1
-    got = _decode(cd.compact_decode_plain, sc, q, qsp, fo, caps).pops
-    assert got[level] > caps[level]
-    assert got[:level + 1].tolist() == true[:level + 1]
-    assert len(_rows(_decode(cd.compact_decode_plain, sc, q, qsp, fo,
-                             caps))) <= caps[5]
+    walk = _brute(sc, world[1], qsp, fo)[0]
+    if fn is cd.compact_decode:
+        sc, q, qsp, fo = _page(world, 4, 2, "cuda")
+    true = _decode(cd.compact_decode_plain, sc, q, qsp, fo)
+    cap = CUTS[cut](int(true.pops[5]))
+    return walk, true, cap, _decode(fn, sc, q, qsp, fo, cap)
+
+
+def _check_capped(walk, true, cap, got):
+    """Every population is the uncapped run's and the walk's, n_rescan
+    passes the cap, and the list holds ``cap`` of the uncapped rows."""
+    pops = true.pops.tolist()
+    assert min(pops) > 0 and pops == walk and pops[5] > cap
+    assert got.pops.tolist() == pops
+    rows = _rows(got)
+    assert len(rows) == cap and set(rows) <= set(_rows(true))
+
+
+@pytest.mark.parametrize("cut", range(len(CUTS)))
+def test_a_cap_below_its_population_flags_the_page(world, cut):
+    _check_capped(*_capped(cd.compact_decode_plain, world, cut))
 
 
 def test_wrapper_runs_plain_version_on_cpu(world):
@@ -333,7 +355,7 @@ def test_kernel_lists_the_rows_of_a_chunk_together_on_the_card(
     torch.cuda.synchronize()
     runs, distinct = _runs(got.rows)
     assert runs == distinct > 0
-    live = int(min(got.pops[5], WIDE[5]))
+    live = int(min(got.pops[5], WIDE))
     assert torch.equal(got.rows.ridx[:live].cpu(), torch.arange(live))
     pad = got.rows.ridx[live:]
     assert bool((pad == -1).all()) and bool((got.rows.hq[live:]
@@ -341,18 +363,12 @@ def test_kernel_lists_the_rows_of_a_chunk_together_on_the_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", range(6))
-def test_kernel_flags_each_overflowing_level_on_the_card(world, level):
+@pytest.mark.parametrize("cut", range(len(CUTS)))
+def test_kernel_flags_each_overflowing_level_on_the_card(world, cut):
     _on_card()
-    sc, q, qsp, fo = _page(world, 4, 2, "cuda")
-    true = _decode(cd.compact_decode_plain, sc, q, qsp, fo).pops.tolist()
-    caps = list(WIDE)
-    caps[level] = true[level] - 1
-    got = _decode(cd.compact_decode, sc, q, qsp, fo, caps)
+    capped = _capped(cd.compact_decode, world, cut)
     torch.cuda.synchronize()
-    assert got.pops[level] > caps[level]
-    assert got.pops[:level + 1].tolist() == true[:level + 1]
-    assert len(_rows(got)) <= caps[5]
+    _check_capped(*capped)
 
 
 # -- ranks past 2^22, near 2^31: the 64-bit offset path --------------------
@@ -453,10 +469,10 @@ def _far_decode(superchunk, device):
     *args, hits = _far_page(superchunk, device)
     header, mit, cfd = decode_score(
         *args, chunk=FAR_CHUNK, superchunk=superchunk, max_dist=4,
-        caps=WIDE, tabs=score_tables(4, device), scan_width=FAR_WIDTH,
+        cap_rescan=WIDE, tabs=score_tables(4, device), scan_width=FAR_WIDTH,
         trim=device == "cpu", rescan_block=4)
     d = cd.compact_decode(*args, chunk=FAR_CHUNK, superchunk=superchunk,
-                          caps=WIDE, tabs=score_tables(4, device),
+                          cap_rescan=WIDE, tabs=score_tables(4, device),
                           trim=device == "cpu")
     return args[0].cpu().numpy(), hits, header.cpu(), mit.cpu(), \
         cfd.cpu(), d

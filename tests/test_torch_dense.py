@@ -31,7 +31,7 @@ from crackling_tpu.ops.tables import (CFD_PAM_NGG_INDEX, cfd_pam_penalties,
                                       cfd_pos_penalties, mit_dense_table)
 from crackling_tpu_torch.ops import issl_dense
 from crackling_tpu_torch.ops.fullscan import dense_scan, dense_scan_plain
-from crackling_tpu_torch.ops.hybrid import plan_query_occupancy
+from crackling_tpu_torch.ops.issl_compact import plan_query_occupancy
 from crackling_tpu_torch.ops.issl_dense import DenseIsslScorer
 from test_band_probe import DENSE_MARGIN, adversarial  # noqa: F401
 from test_dense import data  # noqa: F401  (shared fixture)

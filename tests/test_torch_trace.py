@@ -9,9 +9,9 @@ path's counts and parents, self times that are totals less the children's,
 and each span must appear among the profiler's events, as often and for
 as long (within 10% or 50 us a span). The counters must be exact:
 occupancy plans, pages and splits on a sorted batch whose crowded top
-slice makes ``qb_cap`` halve every page, and cap retries in an
-``auto_caps`` run with tiny caps, checked against ``page_stats``. The
-index is made with numpy from a seed.
+slice makes ``qb_cap`` halve every page, and retries of pages whose rescan
+rows pass a rows cap of 0, checked against ``page_stats``. The index is
+made with numpy from a seed.
 """
 
 import sys
@@ -162,8 +162,14 @@ def test_counters_on_a_halved_sorted_batch(world):
 def test_retries_count_the_pages_run_again(world):
     index, crowd, queries = world
     sigs = np.concatenate([queries, crowd[:56]])
-    sc = scorer(index, query_page=64, nz_cap=8, auto_caps=True)
-    sc._tuned = True                        # start at the tiny caps
+    # three one-base mutants of each guide in slice 4's positions: a
+    # rescan row for each
+    mutants = [sigs ^ (np.uint64(1) << np.uint64(2 * p))
+               for p in (16, 17, 18)]
+    index = build_index(np.concatenate(
+        [np.repeat(index.site_sigs, index.occurrences), *mutants]))
+    sc = scorer(index, query_page=64)
+    sc.cap_rescan = 0
     trace.enable()
     sc.score_sums(sigs)
     s = trace.session()
